@@ -1,10 +1,10 @@
-"""strided_tpu — a TPU-native strided-array kernel engine and batched
+"""strided_tpu — a strided-array kernel engine for JAX accelerators and a batched
 MPC/trajectory-optimization stack.
 
 Brand-new framework with the capabilities of Strided.jl
-(`/root/reference`) re-designed for TPU: lazy strided views, a fused
+(`/root/reference`) re-designed for XLA devices: lazy strided views, a fused
 multi-operand map/broadcast/reduce engine lowered through XLA and Pallas,
-MXU matmul with α/β semantics, and a shard_map-based multi-chip layer, all
+dot_general matmul with α/β semantics, and a shard_map-based multi-chip layer, all
 feeding a batched MPC / trajectory-optimization stack.
 """
 

@@ -7,7 +7,7 @@ rewrites an expression so every dense array becomes a ``StridedView``
 expander: :func:`strided_jit` wraps a function so dense array *arguments*
 enter as lazy views, view *results* leave as dense arrays, and the whole body
 is jit-compiled — one fused XLA/Pallas program, which is exactly what the
-macro's "annotate a block and it gets fast" promise becomes on TPU.
+macro's "annotate a block and it gets fast" promise becomes under JAX.
 
 ``to_array`` is the ``Array(::StridedView)`` constructor family
 (`/root/reference/src/convert.jl:3-15`) including eltype conversion through

@@ -1,13 +1,11 @@
 """Runtime configuration for strided_tpu.
 
-TPU-native analog of the reference's runtime config layer
-(`/root/reference/src/Strided.jl:18-52`): the reference keeps two module-level
-knobs (`_NTHREADS`, `_use_threaded_mul`) plus two hard-coded tuning constants
-(`MINTHREADLENGTH = 1<<15` elements at `src/mapreduce.jl:141`,
-`BLOCKMEMORYSIZE = 1<<15` bytes at `src/mapreduce.jl:462`). Here the tuning
-constants become TPU-hardware ones (VMEM budget instead of L1, (sublane, lane)
-tile alignment instead of cache lines), and the toggles select execution paths
-(Pallas kernels vs plain-XLA lowering, MXU matmul vs generic kernel).
+Analog of the reference's runtime config layer
+(`/root/reference/src/Strided.jl:18-52`): the reference keeps two
+module-level knobs (`_NTHREADS`, `_use_threaded_mul`); here the toggles
+select execution paths (hand-written Pallas kernels vs plain-XLA lowering,
+dot_general matmul vs the generic engine), and :func:`kernel_mode` is the
+one place that says which kernel paths exist on the running platform.
 
 All values can be overridden via environment variables (prefix ``STRIDED_TPU_``)
 or at runtime through :func:`set_config` / :func:`get_config`.
@@ -35,101 +33,43 @@ def _env_bool(name: str, default: bool) -> bool:
 
 @dataclasses.dataclass(frozen=True)
 class Config:
-    """Frozen (hashable) configuration consulted by the planner and executors.
+    """Frozen (hashable) configuration consulted by the dispatch layers.
 
     Mirrors the *roles* of the reference config (`src/Strided.jl:18-52`):
 
-    - ``vmem_budget_bytes``: analog of ``BLOCKMEMORYSIZE`` (L1 size model,
-      `src/mapreduce.jl:462`) — total per-core VMEM footprint the tile solver
-      is allowed to use across all operand tiles.
-    - ``min_pallas_elements``: analog of ``MINTHREADLENGTH``
-      (`src/mapreduce.jl:141`) — below this many output elements the Pallas
-      path is skipped and plain XLA lowering is used (kernel launch overhead
-      dominates, just as thread-spawn overhead does in the reference).
-    - ``use_pallas``: master toggle for the Pallas kernel engine (analog of
-      ``enable_threads``/``disable_threads``, `src/Strided.jl:34-35` — the
-      reference's fast path on/off switch).
+    - ``use_pallas``: master toggle for the hand-written Pallas kernels
+      (analog of ``enable_threads``/``disable_threads``,
+      `src/Strided.jl:34-35` — the reference's fast path on/off switch).
+      Whether a kernel exists on the running platform at all is decided by
+      :func:`kernel_mode`.
     - ``use_mxu``: analog of ``_use_threaded_mul`` (`src/Strided.jl:37-48`) —
-      routes matmul through `lax.dot_general` (MXU) when eligible instead of
-      the generic strided-reduce kernel.
+      routes matmul through `lax.dot_general` (cuBLAS on the GPU) when
+      eligible instead of the generic strided-reduce engine.
     """
 
-    # VMEM is ~16 MiB/core on v4/v5; leave headroom for double buffering and
-    # compiler-managed spills.
-    vmem_budget_bytes: int = _env_int("VMEM_BUDGET_BYTES", 8 * 1024 * 1024)
-    min_pallas_elements: int = _env_int("MIN_PALLAS_ELEMENTS", 1 << 15)
-    # The generic Pallas MAP path (tiled in-VMEM-transpose kernels) only
-    # beats XLA's fused codegen in the HBM-bound regime: measured r4,
-    # scale-transpose 8192^2 (67M elems) Pallas 339 vs XLA 299, but 64^4
-    # (16.7M) XLA 166 vs Pallas 159-162 and 32^4 XLA ~520 vs Pallas ~90-185
-    # (on-chip-resident regime, DESIGN.md r4 study). Re-audited r5 with the
-    # collapse-proof interleaved-chain harness (results_tpu_r5.json
-    # map_gate_audit): tiles 333/335 vs XLA 328/332 at 6144^2/8192^2 — the
-    # tile edge survives the honest measurement, the gate stands. Maps
-    # below this many iteration elements stay on XLA; the pair/stream
-    # kernels keep their own gates.
-    pallas_map_min_elements: int = _env_int("PALLAS_MAP_MIN_ELEMENTS", 1 << 25)
     use_pallas: bool = _env_bool("USE_PALLAS", True)
     use_mxu: bool = _env_bool("USE_MXU", True)
-    # Lane count is 128 on all TPU generations; sublane count for f32 is 8.
-    lane: int = 128
-    sublane: int = 8
-    # Interpret mode for Pallas kernels (CI / CPU debugging).
+    # Run the Pallas kernels in interpret mode. Only meaningful on the CPU
+    # backend (the test suite sets it there); a GPU backend refuses it, see
+    # kernel_mode().
     interpret: bool = _env_bool("INTERPRET", False)
-    # MXU precision for f32 matmuls: 'highest' (f32-accurate via bf16x3
-    # passes — the default, since the reference is an exact/f64 CPU engine),
-    # 'default' (single-pass bf16 — fastest), or 'high'.
+    # Matmul precision for f32 products. On the GPU, 'highest' is IEEE FP32
+    # (the default: the reference is an exact f64 CPU engine and the MPC
+    # accuracy gate needs it); 'high' and 'default' allow TF32 tensor-core
+    # products (about three decimal digits per operand).
     matmul_precision: str = os.environ.get("STRIDED_TPU_MATMUL_PRECISION", "highest")
-    # Pallas tile planning uses vmem_budget_bytes / divisor as the
-    # single-buffered footprint target (Pallas double-buffers and pads).
-    pallas_budget_divisor: int = _env_int("PALLAS_BUDGET_DIVISOR", 4)
-    # Route reductions (op != None) through the Pallas tile path. Default
-    # OFF: measured on v5e, XLA streams fused reductions at 575-670 GB/s
-    # while the revisiting-accumulator Pallas grid does 28-103 GB/s — XLA's
-    # reduction codegen is the better scheduler, so the engine only uses
-    # Pallas tiles for pure maps (where it wins, 270-340 vs 260-300 GB/s).
-    pallas_reductions: bool = _env_bool("PALLAS_REDUCTIONS", False)
     # Structured-pattern dispatch in the lazy-expression layer: recognize
-    # (v + v.T) * alpha and run the two-pass tile-pair symmetrize kernel
-    # (~326 vs ~265 GB/s generic three-pass at 8192^2/f32, r3 measured).
-    # Off -> every expression takes the generic fused engine.
+    # (v + v.T) * alpha and its family and run the tile-pair kernel. Off ->
+    # every expression takes the generic fused engine.
     expr_pattern_dispatch: bool = _env_bool("EXPR_PATTERN_DISPATCH", True)
-    # Pair-kernel size gate, set from the r5 collapse-proof crossover
-    # (benchmarks/results_tpu_r5.json pair_crossover_rotation; VERDICT r4
-    # items 1/weak-6: one measured rationale, one gate): the kernel wins
-    # the two-term family at every measured size >= 2048^2 (525 vs 426 at
-    # 2048, 592 vs 282 at 4000, 328 vs 274 at 8192) and LOSES at 1024^2
-    # (494 vs 681 — XLA's small-array transpose is fast). Gate at 2048^2
-    # elements; 1024-2047 stays on XLA (measured-safe side).
+    # Below this many elements the same-buffer pair pattern stays on XLA's
+    # fused expression. Measured on an H100 (see PERF.md): device time
+    # favours the kernel by 7% at 2048^2 and by 1.25-1.5x from 2896^2 up,
+    # but eager wall time, which adds the host dispatch of the Python entry
+    # point, favours it only from 4000^2 — the reference's flagship size.
     pair_kernel_min_elements: int = _env_int(
-        "PAIR_KERNEL_MIN_ELEMENTS", 1 << 22
+        "PAIR_KERNEL_MIN_ELEMENTS", 4000 * 4000
     )
-    # Streaming manual-DMA reduction kernel for leading-physical-axis
-    # reductions keeping the minor dim (kernels_special.try_stream_reduce).
-    # Measured r4 at 8192^2 f32 (collapse-proof 1-pass harness, ABAB):
-    # read pass 728-753 GB/s vs XLA 692-715; complete sums and fused
-    # contexts at parity — the redesign the r3 revisiting-grid path
-    # (28-103 GB/s, kept test-only) called for.
-    stream_reductions: bool = _env_bool("STREAM_REDUCTIONS", True)
-    # Below this many input elements the stream-reduce kernel is skipped
-    # (XLA wins in the on-chip-resident regime; see DESIGN.md r4 study).
-    min_stream_reduce_elements: int = _env_int(
-        "MIN_STREAM_REDUCE_ELEMENTS", 1 << 24
-    )
-    # Fused-ADMM Pallas kernel for the condensed-QP solver (mpc/qp.py):
-    # all iterations in one kernel with VMEM-resident iterates. The XLA
-    # scan round-trips the (B, N*m) z/y iterates through HBM every
-    # iteration (~52 MB/iter at batch 16384) — the bottleneck once the r5
-    # operating point dropped to 6 iterations. Identical math at HIGHEST
-    # matmul precision; measured r5 (results_tpu_r5.json fused_admm).
-    fused_admm: bool = _env_bool("FUSED_ADMM", True)
-    # Route order-aligned (no in-VMEM transpose needed) pure maps through
-    # Pallas tiles. Default OFF: measured on v5e, XLA's fused elementwise
-    # codegen wins on aligned layouts (compute-bound broadcast 8192^2:
-    # 490 GB/s XLA vs 276 Pallas); the tile path only wins when some
-    # operand needs a transposed read. Tests force this on to pin the
-    # kernel machinery on aligned layouts too.
-    pallas_aligned_maps: bool = _env_bool("PALLAS_ALIGNED_MAPS", False)
 
 
 _config = Config()
@@ -150,8 +90,8 @@ def matmul_precision_scope(fn):
     """Decorator: trace ``fn`` under ``jax.default_matmul_precision`` set to
     the configured :attr:`Config.matmul_precision`.
 
-    Rationale (VERDICT r2 item 1): on TPU a bare ``@`` / ``jnp.einsum`` /
-    ``solve_triangular`` runs the MXU at DEFAULT (bf16-input) precision, which
+    Rationale: on the GPU a bare ``@`` / ``jnp.einsum`` /
+    ``solve_triangular`` may run at DEFAULT (TF32) precision, which
     silently degrades f32 math — the reference's contract is BLAS-grade f64
     CPU accuracy (`/root/reference/src/linalg.jl:44-63`), so every solver in
     the MPC stack wraps its body in this scope instead of relying on each
@@ -166,6 +106,35 @@ def matmul_precision_scope(fn):
             return fn(*args, **kwargs)
 
     return wrapped
+
+
+def kernel_mode() -> Optional[str]:
+    """Which hand-written Pallas kernels exist on the running platform —
+    the single platform decision every kernel call site consults.
+
+    - ``"triton"``: a GPU backend; kernels compile through Pallas's Triton
+      route (``backend="triton"``).
+    - ``"interpret"``: the CPU backend with ``Config.interpret`` set (the
+      test suite); kernels run in Pallas interpret mode.
+    - ``None``: no kernel — the CPU without ``interpret``, any other
+      platform, or ``use_pallas`` off. Callers take the plain XLA path.
+
+    ``interpret`` on a GPU backend raises instead of silently running the
+    interpreter on the device."""
+    import jax
+
+    cfg = get_config()
+    platform = jax.default_backend()
+    if platform == "gpu":
+        if cfg.interpret:
+            raise RuntimeError(
+                "Config.interpret is set on a GPU backend: Pallas kernels "
+                "compile through Triton there; unset STRIDED_TPU_INTERPRET"
+            )
+        return "triton" if cfg.use_pallas else None
+    if platform == "cpu" and cfg.interpret and cfg.use_pallas:
+        return "interpret"
+    return None
 
 
 def enable_pallas() -> None:

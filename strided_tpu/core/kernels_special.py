@@ -1,104 +1,63 @@
-"""Specialized Pallas kernels for transpose-pair workloads.
+"""Tile-pair Pallas kernel for transpose-pair workloads.
 
 :func:`pair_axpby` computes ``B = epilogue(alpha*A + beta*C^T)`` — the
 reference's flagship benchmark family: ``B .= (A .+ A')./2`` (symmetrize,
 `/root/reference/README.md:69-73`), ``axpby!``-transpose
 (`/root/reference/src/linalg.jl:39-42`), antisymmetrize ``A - A'``, and
 (direct calls only) the single-term ``3 .* A'`` and distinct-buffer
-``A + B'`` variants. The expression-layer DISPATCH sends only the
-same-buffer two-term family here (>= the measured 2048^2 gate): the r5
-collapse-proof crossover showed XLA winning the single-term family at
-every size and the distinct-buffer family by ~5% (see
-``lazy_expr.try_pattern_expr`` and DESIGN.md's r5 study).
+``A + B'`` variants. The expression-layer dispatch sends only the
+same-buffer two-term family here (see ``lazy_expr.try_pattern_expr``).
 
-Why a dedicated kernel: the naive lowering (XLA's, and the generic engine's)
-reads ``A`` (and ``C``) through a *transposed* HBM access pattern, which on
-this chip tops out at ~267 GB/s vs ~654 GB/s for streaming access
-(DESIGN.md roofline ladder). This kernel walks tile *pairs* ``(i, j)`` /
-``(j, i)``: it DMAs both mirror tiles to VMEM with streaming-friendly
-transfers, transposes **in VMEM** (free), and writes both output tiles.
-When ``C is A`` (the symmetrize family) each input tile is read once and
-each output tile written once — a two-pass HBM schedule, a 1.5x traffic
-reduction XLA cannot express because one grid step must write two disjoint
-output blocks.
+Why a dedicated kernel: a fused elementwise lowering of ``A + A.T`` reads
+every element twice (once plain, once through the transpose) and writes it
+once — 12 bytes per f32 element. This kernel walks tile *pairs*
+``(i, j)`` / ``(j, i)`` of the upper triangle: one program loads both
+mirror tiles, transposes them in registers/shared memory, and writes both
+output tiles, so each input element is read once and each output element
+written once — 8 bytes per element. One program writing two disjoint
+output tiles is what a fused XLA expression cannot express.
 
-Edge handling (n not divisible by the tile size — e.g. the reference's
-literal 4000x4000 flagship): HBM arrays are physically tiled (8, 128) for
-f32, and Mosaic requires DMA slice starts *provably* divisible by that
-tiling, so tile starts must be multiples of 128 in BOTH dims (the pair
-structure maps every row range to a column range and vice versa). The
-kernel therefore covers the 128-aligned core ``[0, rounddown(n, 128))^2``
-with **clamped** 128-aligned starts (the last tile row/column starts at
-``core - T``, overlapping its neighbor; overlapped elements receive
-bit-identical values, so concurrent duplicate writes are harmless), and
-the ragged right/bottom strips (at most 127 wide, <2 % of traffic at
-4000^2) are computed by fused XLA with the identical op structure and
-merged with in-place ``dynamic_update_slice`` — bit-exact everywhere.
-Starts are prefetched in units of 128 and multiplied inside the kernel so
-the alignment is provable.
-
-Mechanics (see the Pallas guide patterns): inputs/outputs stay in
-``pl.ANY`` (HBM); a scalar-prefetched worklist of (row_start, col_start)
-tile pairs drives a 1-D grid; the kernel double-buffers: step k prefetches
-step k+1's input tiles while computing, and output DMAs drain two steps
-behind. Diagonal pairs (ri == rj) skip the second (duplicate) output DMA —
-measured r3 (benchmarks/results_tpu_r3.json): 325.9 GB/s at 8192^2/f32,
-with the identical schedule as a pure pair-copy (no compute) at 325.0,
-i.e. the kernel runs at its DMA schedule's ceiling.
+Written for the GPU through Pallas's Triton route: power-of-two square
+tiles, masked loads and stores for the ragged edge (any ``n``, e.g. the
+reference's literal 4000x4000), and the (i, j) worklist passed as two
+int32 index arrays that each program reads at its own ``program_id``.
 """
 
 from __future__ import annotations
 
 import functools
-import math
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-from ..config import get_config
+from ..config import get_config, kernel_mode
 
-try:
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    _HAS_PALLAS = True
-except Exception:  # pragma: no cover
-    _HAS_PALLAS = False
-
-__all__ = ["symmetrize", "pair_axpby", "pair_kernel_tile", "try_stream_reduce"]
+__all__ = ["symmetrize", "pair_axpby", "pair_kernel_tile"]
 
 _OK_DTYPES = ("float32", "bfloat16")
+# Square tile edge and warps per program (one tile pair per program).
+PAIR_TILE = 64
+PAIR_NUM_WARPS = 4
 
 
 def pair_kernel_tile(n: int, m: int, dtype, distinct: bool = False):
     """Shared eligibility predicate for the pair kernel: returns the tile
     size the kernel would use, or ``None`` when the kernel cannot run and
-    callers must take the generic path. This is the single gate both
-    :func:`pair_axpby` and the lazy-expression pattern dispatch consult, so
-    the dispatch can never claim the kernel path while the kernel silently
-    falls back (ADVICE r3 item 1)."""
+    callers must take the fused XLA expression. This is the single gate
+    both :func:`pair_axpby` and the lazy-expression pattern dispatch
+    consult, so the dispatch can never claim the kernel path while the
+    kernel silently falls back."""
     cfg = get_config()
-    if not (_HAS_PALLAS and cfg.use_pallas):
+    if kernel_mode() is None:
         return None
     if n != m or n == 0 or str(dtype) not in _OK_DTYPES:
         return None
-    # Size gate measured in the r5 collapse-proof crossover (see
-    # config.pair_kernel_min_elements): kernel wins >= 2048^2, XLA wins
-    # 1024^2 — below the gate the dispatch declines and XLA's fused
-    # expression (fast small-array transposes) runs instead.
     if n * n < cfg.pair_kernel_min_elements:
         return None
-    core = (n // 128) * 128  # the kernel-coverable 128-aligned core
-    # Distinct-buffer pairs hold 12 tiles in VMEM (4 in x2 slots + 2 out x2)
-    # vs 8 for the same-buffer case; 384 keeps the footprint ~7 MB (<16 MB
-    # VMEM/core) while 512 would need 12 MB.
-    prefs = (384, 256, 128) if distinct else (512, 256, 128)
-    for t in prefs:
-        if core >= t:
-            return t
-    return None
+    return PAIR_TILE
 
 
 def _apply_coeff(t, c: float):
@@ -113,7 +72,7 @@ def _apply_coeff(t, c: float):
 
 def _epilogue(S, scale_mode, scale):
     """The top-level scale node of the source expression — ONE definition
-    shared by the kernel, the fallback, and the strip combine so the
+    shared by the kernel and the fallback so the
     bit-exact kernel/generic contract has a single point of truth."""
     if scale_mode == "mul":
         return S * scale
@@ -129,15 +88,15 @@ def _pair_term(a, ct, alpha: float, beta: float, plain_first: bool = True):
     no plain term at all — computing ``0*a + ...`` would differ on
     inf/NaN inputs and break the bit-exact kernel/generic contract.
 
-    ``plain_first`` preserves the SOURCE expression's term order: XLA may
-    contract one of the two multiplies into an FMA and chooses by operand
-    order, so ``alpha*A + beta*C.T`` and ``beta*C.T + alpha*A`` can differ
-    in the last ulp — the kernel must add in the same order as the generic
-    closure it is bit-exact against. A ``beta == 0.0`` in a TWO-term source
+    ``plain_first`` preserves the SOURCE expression's term order: a compiler
+    may contract one of the two multiplies into an FMA and choose by
+    operand order, so ``alpha*A + beta*C.T`` and ``beta*C.T + alpha*A`` can
+    differ in the last ulp — the kernel adds in the same order as the
+    generic closure. A ``beta == 0.0`` in a TWO-term source
     must still compute ``0 * ct`` (inf/NaN semantics — `0*inf = NaN`), so
     only ``alpha == 0.0`` (the marker for a source with no plain term at
-    all) drops anything. ONE definition shared by the kernel, the
-    fallback, and the strip combine."""
+    all) drops anything. ONE definition shared by the kernel and the
+    fallback."""
     if alpha == 0.0:
         return _apply_coeff(ct, beta)
     ta, tb = _apply_coeff(a, alpha), _apply_coeff(ct, beta)
@@ -145,7 +104,7 @@ def _pair_term(a, ct, alpha: float, beta: float, plain_first: bool = True):
 
 
 def _make_pair_kernel(
-    nsteps: int,
+    n: int,
     T: int,
     alpha: float,
     beta: float,
@@ -154,145 +113,55 @@ def _make_pair_kernel(
     distinct: bool,
     plain_first: bool,
 ):
-    """Double-buffered tile-pair kernel. Per step (ri, rj):
+    """One program per upper-triangle tile pair (i, j), i <= j:
 
-    same-buffer:   reads A[ri,rj], A[rj,ri]; distinct: also C[ri,rj], C[rj,ri]
-    S1 = ep(alpha*A[ri,rj] + beta*C[rj,ri]^T)  -> B[ri,rj]
-    S2 = ep(alpha*A[rj,ri] + beta*C[ri,rj]^T)  -> B[rj,ri]   (skipped on the
-    diagonal, where it would duplicate S1's write)
+    same-buffer:   loads A[i,j], A[j,i]; distinct: also C[i,j], C[j,i]
+    S1 = ep(alpha*A[i,j] + beta*C[j,i]^T)  -> B[i,j]
+    S2 = ep(alpha*A[j,i] + beta*C[i,j]^T)  -> B[j,i]   (not stored on the
+    diagonal, where it would duplicate S1)
 
     The op structure (coeff-multiply, add, then one epilogue mul/div)
-    mirrors the generic fused expression exactly, so kernel and generic
-    paths are bit-identical for every supported spelling (ADVICE r3 item 2).
-    """
+    mirrors the generic fused expression, so kernel and generic paths agree
+    for every supported spelling."""
 
     def epilogue(S):
         return _epilogue(S, scale_mode, scale)
 
     def kernel(ri_ref, rj_ref, *refs):
         if distinct:
-            (a_hbm, c_hbm, out_hbm, s_in_a, s_in_c, s_out,
-             in_sems_a, in_sems_c, out_sems) = refs
+            a_ref, c_ref, o_ref = refs
         else:
-            a_hbm, out_hbm, s_in_a, s_out, in_sems_a, out_sems = refs
-            c_hbm, s_in_c, in_sems_c = a_hbm, None, None
-
-        # Pin index math to int32: under jax_enable_x64 the default int is
-        # int64, which Mosaic cannot lower.
-        step = jnp.asarray(pl.program_id(0), jnp.int32)
-        slot = step % 2
-        nxt = (step + 1) % 2
-
-        def in_dmas(sl, st_):
-            # starts are prefetched in units of 128; the multiply makes the
-            # (8, 128)-tiling alignment of the HBM slice provable to Mosaic
-            ri = ri_ref[st_] * 128
-            rj = rj_ref[st_] * 128
-            dmas = [
-                pltpu.make_async_copy(
-                    a_hbm.at[pl.ds(ri, T), pl.ds(rj, T)],
-                    s_in_a.at[sl, 0],
-                    in_sems_a.at[sl, 0],
-                ),
-                pltpu.make_async_copy(
-                    a_hbm.at[pl.ds(rj, T), pl.ds(ri, T)],
-                    s_in_a.at[sl, 1],
-                    in_sems_a.at[sl, 1],
-                ),
-            ]
-            if distinct:
-                dmas += [
-                    pltpu.make_async_copy(
-                        c_hbm.at[pl.ds(ri, T), pl.ds(rj, T)],
-                        s_in_c.at[sl, 0],
-                        in_sems_c.at[sl, 0],
-                    ),
-                    pltpu.make_async_copy(
-                        c_hbm.at[pl.ds(rj, T), pl.ds(ri, T)],
-                        s_in_c.at[sl, 1],
-                        in_sems_c.at[sl, 1],
-                    ),
-                ]
-            return dmas
-
-        def out_dmas(sl, st_):
-            ri = ri_ref[st_] * 128
-            rj = rj_ref[st_] * 128
-            return (
-                pltpu.make_async_copy(
-                    s_out.at[sl, 0],
-                    out_hbm.at[pl.ds(ri, T), pl.ds(rj, T)],
-                    out_sems.at[sl, 0],
-                ),
-                pltpu.make_async_copy(
-                    s_out.at[sl, 1],
-                    out_hbm.at[pl.ds(rj, T), pl.ds(ri, T)],
-                    out_sems.at[sl, 1],
-                ),
-            )
-
-        @pl.when(step == 0)
-        def _():
-            for d in in_dmas(0, 0):
-                d.start()
-
-        @pl.when(step + 1 < nsteps)
-        def _():
-            for d in in_dmas(nxt, step + 1):
-                d.start()
-
-        for d in in_dmas(slot, step):
-            d.wait()
-
-        # Guard out-slot reuse: the DMAs launched two steps ago from this
-        # slot must have drained before we overwrite s_out[slot]. Diagonal
-        # pairs started only the first write, so only wait the second when
-        # it was actually issued.
-        def wait_out_pair(sl, st_):
-            ri_ = ri_ref[st_]
-            rj_ = rj_ref[st_]
-            d0, d1 = out_dmas(sl, st_)
-            d0.wait()
-
-            @pl.when(ri_ != rj_)
-            def _():
-                d1.wait()
-
-        @pl.when(step >= 2)
-        def _():
-            wait_out_pair(slot, step - 2)
-
-        a1 = s_in_a[slot, 0]
-        a2 = s_in_a[slot, 1]
+            a_ref, o_ref = refs
+            c_ref = a_ref
+        # Index math pinned to int32 (the default int is int64 under x64).
+        k = jnp.asarray(pl.program_id(0), jnp.int32)
+        r0 = ri_ref[k] * T
+        c0 = rj_ref[k] * T
+        idx = jnp.arange(T, dtype=jnp.int32)
+        rows_ok = (r0 + idx) < n
+        cols_ok = (c0 + idx) < n
+        m_ij = rows_ok[:, None] & cols_ok[None, :]  # tile (i, j)
+        m_ji = cols_ok[:, None] & rows_ok[None, :]  # tile (j, i)
+        blk_ij = (pl.ds(r0, T), pl.ds(c0, T))
+        blk_ji = (pl.ds(c0, T), pl.ds(r0, T))
+        a1 = plgpu.load(a_ref.at[blk_ij], mask=m_ij, other=0)
+        a2 = plgpu.load(a_ref.at[blk_ji], mask=m_ji, other=0)
         if distinct:
-            c1 = s_in_c[slot, 0]
-            c2 = s_in_c[slot, 1]
+            c1 = plgpu.load(c_ref.at[blk_ij], mask=m_ij, other=0)
+            c2 = plgpu.load(c_ref.at[blk_ji], mask=m_ji, other=0)
         else:
             c1, c2 = a1, a2
         S1 = epilogue(_pair_term(a1, c2.T, alpha, beta, plain_first))
         if not distinct and alpha == beta and alpha != 0.0:
             # symmetric case: S2 = alpha*a2 + beta*a1.T = S1.T exactly (the
-            # epilogue commutes with transpose) — halves the VPU work so the
-            # compute stays hidden under the DMAs (r3's kernel shape).
+            # epilogue commutes with transpose) — halves the arithmetic.
             S2 = S1.T
         else:
             S2 = epilogue(_pair_term(a2, c1.T, alpha, beta, plain_first))
-        s_out[slot, 0] = S1
-        s_out[slot, 1] = S2
-        d0, d1 = out_dmas(slot, step)
-        d0.start()
-
-        @pl.when(ri_ref[step] != rj_ref[step])
-        def _():
-            d1.start()
-
-        @pl.when(step == nsteps - 1)
-        def _():
-            wait_out_pair(slot, step)
-            if nsteps >= 2:
-                @pl.when(step >= 1)
-                def _():
-                    wait_out_pair(nxt, step - 1)
+        plgpu.store(o_ref.at[blk_ij], S1.astype(o_ref.dtype), mask=m_ij)
+        plgpu.store(
+            o_ref.at[blk_ji], S2.astype(o_ref.dtype), mask=m_ji & (r0 != c0)
+        )
 
     return kernel
 
@@ -310,9 +179,9 @@ def _pair_fallback(a, c, alpha, beta, scale_mode, scale, plain_first=True):
 )
 def pair_fallback_call(a, c, *, alpha, beta, scale_mode, scale,
                        plain_first=True):
-    """Jitted wrapper over :func:`_pair_fallback` — the measured-best route
-    for DISTINCT-buffer pairs (r5: fused XLA 407 vs kernel 385 GB/s at
-    8192^2). Jitted so eager use compiles the whole expression as one
+    """Jitted wrapper over :func:`_pair_fallback` — the route the
+    expression dispatch gives DISTINCT-buffer pairs. Jitted so eager use
+    compiles the whole expression as one
     program (op-by-op eager compilation skips FMA contraction and drifts a
     ulp from the jitted spelling); under an enclosing jit it inlines."""
     return _pair_fallback(a, c, alpha, beta, scale_mode, scale, plain_first)
@@ -329,377 +198,75 @@ def pair_axpby(
     tile: int = None,
     plain_first: bool = True,
 ) -> jax.Array:
-    """``epilogue(alpha*a + beta*c.T)`` via the two-pass tile-pair kernel.
+    """``epilogue(alpha*a + beta*c.T)`` via the tile-pair kernel.
 
-    ``c`` defaults to ``a`` (the symmetrize family — two HBM passes);
-    distinct ``c`` runs the three-pass variant whose advantage is streaming
-    (never transposed) HBM access. ``alpha``/``beta``/``scale`` are static
-    Python floats — the lazy-expression pattern dispatch extracts them from
-    literals like ``(v + v.T) / 2`` or ``3*v + 2*v.T``. ``scale_mode`` is
-    ``None`` / ``'mul'`` / ``'div'``: the epilogue replicates the top-level
-    node of the source expression so results match the generic path
-    bit-for-bit. Falls back to the plain fused expression whenever
-    :func:`pair_kernel_tile` says the kernel cannot run.
+    ``c`` defaults to ``a`` (the symmetrize family — one read and one write
+    per element); a distinct ``c`` reads both buffers once.
+    ``alpha``/``beta``/``scale`` are static Python floats — the
+    lazy-expression pattern dispatch extracts them from literals like
+    ``(v + v.T) / 2`` or ``3*v + 2*v.T``. ``scale_mode`` is ``None`` /
+    ``'mul'`` / ``'div'``: the epilogue replicates the top-level node of the
+    source expression so results match the generic path. ``tile`` (a power
+    of two) overrides the size gate; the kernel still runs only where
+    :func:`~strided_tpu.config.kernel_mode` offers kernels. Otherwise falls
+    back to the plain fused expression.
 
     Eligibility is decided OUTSIDE the jit cache (config toggles take
     effect immediately in eager use; under an enclosing jit the decision is
     trace-time, like every dispatch decision in the engine)."""
     n, m = a.shape
-    cfg = get_config()
     distinct = c is not None
     if distinct and (c.shape != a.shape or c.dtype != a.dtype):
         return _pair_fallback(a, c, alpha, beta, scale_mode, scale, plain_first)
+    if tile is not None and (tile < 16 or tile & (tile - 1)):
+        raise ValueError(f"pair kernel tile must be a power of two >= 16, got {tile}")
+    mode = kernel_mode()
     T = tile if tile is not None else pair_kernel_tile(n, m, a.dtype, distinct)
-    core = (n // 128) * 128
-    ok = (
-        T is not None
-        and T % 128 == 0  # starts are prefetched in units of 128; a
-        # non-aligned explicit tile would truncate them silently
-        and _HAS_PALLAS
-        and cfg.use_pallas
-        and n == m
-        and core >= T
-        and str(a.dtype) in _OK_DTYPES
-    )
-    if not ok:
+    if (
+        T is None
+        or mode is None
+        or n != m
+        or n == 0
+        or str(a.dtype) not in _OK_DTYPES
+    ):
         return _pair_fallback(a, c, alpha, beta, scale_mode, scale, plain_first)
-    interpret = cfg.interpret or jax.default_backend() != "tpu"
-    if distinct:
-        return _pair_call(a, c, alpha=alpha, beta=beta, scale_mode=scale_mode,
-                          scale=scale, tile=T, interpret=interpret,
-                          plain_first=plain_first)
-    return _pair_call_same(a, alpha=alpha, beta=beta, scale_mode=scale_mode,
-                           scale=scale, tile=T, interpret=interpret,
-                           plain_first=plain_first)
+    operands = (a,) if c is None else (a, c)
+    return _pair_call(n, T, float(alpha), float(beta), scale_mode, float(scale),
+                      mode == "interpret", plain_first, distinct)(*operands)
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("alpha", "beta", "scale_mode", "scale", "tile", "interpret",
-                     "plain_first"),
-)
-def _pair_call_same(a, *, alpha, beta, scale_mode, scale, tile, interpret,
-                    plain_first=True):
-    return _pair_call_impl(a, None, alpha, beta, scale_mode, scale, tile,
-                           interpret, plain_first)
+@functools.lru_cache(maxsize=None)
+def _pair_call(n, T, alpha, beta, scale_mode, scale, interpret, plain_first,
+               distinct):
+    """The jitted kernel call for one static configuration. Cached so that a
+    call passes arrays only and takes jit's fast dispatch path (static
+    keyword arguments would add host time to every eager call)."""
+    ri, rj = np.triu_indices(-(-n // T))
+    kernel = _make_pair_kernel(n, T, alpha, beta, scale_mode, scale, distinct,
+                               plain_first)
 
+    @jax.jit
+    def call(*arrays):
+        return pl.pallas_call(
+            kernel,
+            grid=(len(ri),),
+            out_shape=jax.ShapeDtypeStruct((n, n), arrays[0].dtype),
+            backend="triton",
+            interpret=interpret,
+            compiler_params=plgpu.CompilerParams(num_warps=PAIR_NUM_WARPS),
+            name="pair_axpby",
+        )(jnp.asarray(ri, jnp.int32), jnp.asarray(rj, jnp.int32), *arrays)
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("alpha", "beta", "scale_mode", "scale", "tile", "interpret",
-                     "plain_first"),
-)
-def _pair_call(a, c, *, alpha, beta, scale_mode, scale, tile, interpret,
-               plain_first=True):
-    return _pair_call_impl(a, c, alpha, beta, scale_mode, scale, tile,
-                           interpret, plain_first)
-
-
-def _pair_call_impl(a, c, alpha, beta, scale_mode, scale, tile, interpret,
-                    plain_first=True):
-    n = a.shape[0]
-    T = tile
-    distinct = c is not None
-    core = (n // 128) * 128
-
-    # Clamped worklist over the 128-aligned core: ceil(core/T) tile rows,
-    # the last starting at core-T (a multiple of 128, so the alignment stays
-    # provable; the overlap writes bit-identical values). Starts are stored
-    # in units of 128 for the in-kernel provable multiply.
-    nb = -(-core // T)
-    starts = [min(i * T, core - T) for i in range(nb)]
-    pairs = [(starts[i], starts[j]) for i in range(nb) for j in range(i, nb)]
-    ri = jnp.asarray(np.array([p[0] // 128 for p in pairs], np.int32))
-    rj = jnp.asarray(np.array([p[1] // 128 for p in pairs], np.int32))
-
-    scratch = [
-        pltpu.VMEM((2, 2, T, T), a.dtype),  # in slots x {A_ij, A_ji}
-    ]
-    if distinct:
-        scratch.append(pltpu.VMEM((2, 2, T, T), a.dtype))  # {C_ij, C_ji}
-    scratch.append(pltpu.VMEM((2, 2, T, T), a.dtype))  # out slots x {S1, S2}
-    scratch.append(pltpu.SemaphoreType.DMA((2, 2)))  # in A
-    if distinct:
-        scratch.append(pltpu.SemaphoreType.DMA((2, 2)))  # in C
-    scratch.append(pltpu.SemaphoreType.DMA((2, 2)))  # out
-
-    grid_spec = pltpu.PrefetchScalarGridSpec(
-        num_scalar_prefetch=2,
-        grid=(len(pairs),),
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * (2 if distinct else 1),
-        out_specs=pl.BlockSpec(memory_space=pl.ANY),
-        scratch_shapes=scratch,
-    )
-    operands = (ri, rj, a, c) if distinct else (ri, rj, a)
-    out = pl.pallas_call(
-        _make_pair_kernel(len(pairs), T, alpha, beta, scale_mode, scale, distinct,
-                          plain_first),
-        grid_spec=grid_spec,
-        out_shape=jax.ShapeDtypeStruct((n, n), a.dtype),
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            has_side_effects=True,
-            vmem_limit_bytes=16 * 1024 * 1024,
-        ),
-    )(*operands)
-
-    if core == n:
-        return out
-    # Ragged strips beyond the 128-aligned core (width < 128): fused XLA
-    # with the identical op structure, merged in place (XLA lowers a
-    # dynamic-update-slice of a dead operand without copying the buffer).
-    # The corner [core:, core:] is written by both strips with identical
-    # values.
-    cc = a if c is None else c
-
-    def combine(a_blk, ct_blk):
-        return _epilogue(
-            _pair_term(a_blk, ct_blk, alpha, beta, plain_first), scale_mode, scale
-        )
-
-    right = combine(a[:, core:], cc[core:, :].T)  # (n, n-core)
-    out = lax.dynamic_update_slice(out, right, (0, core))
-    bottom = combine(a[core:, :], cc[:, core:].T)  # (n-core, n)
-    out = lax.dynamic_update_slice(out, bottom, (core, 0))
-    return out
+    return call
 
 
 def symmetrize(a: jax.Array, tile: int = None, alpha: float = 0.5) -> jax.Array:
     """``(a + a.T) * alpha`` — the reference's flagship workload
     (`/root/reference/README.md:69-73`) through the tile-pair kernel.
-    Any square f32/bf16 matrix with ``n >= 128`` hits the kernel (edge
-    tiles clamped); smaller/ineligible inputs take the identical-structure
-    fused expression."""
+    Square f32/bf16 matrices at or above ``Config.pair_kernel_min_elements``
+    (or any size with an explicit ``tile``) hit the kernel where
+    :func:`~strided_tpu.config.kernel_mode` offers one; everything else
+    takes the identical-structure fused expression."""
     if alpha == 1.0:
         return pair_axpby(a, tile=tile)
     return pair_axpby(a, scale_mode="mul", scale=alpha, tile=tile)
-
-
-# ---------------------------------------------------------------------------
-# Streaming reduction kernel (VERDICT r3 item 6)
-# ---------------------------------------------------------------------------
-# The r3 revisiting-BlockSpec reduction grid measured 28-103 GB/s and was
-# demoted to test-only (``pallas_reductions=False``). This is its redesign in
-# the manual-DMA style of the pair kernel: double-buffered (R, C) input
-# slabs, a VMEM accumulator per column block, column-block-parallel outer
-# grid, sequential row-slab inner grid. Measured r4 at 8192^2 f32
-# (benchmarks/exp_reduce.py, results_tpu_r4.json): slab 256x4096 sustains
-# **763 GB/s** in the 2-pass chained model vs XLA's 698 — isolating the
-# reduction read pass, ~721 GB/s vs XLA's ~613 (HBM spec 819). The engine
-# dispatches leading-physical-axis reductions here (``sreduce_dims``); all
-# other shapes keep XLA's streaming codegen.
-
-_STREAM_REDUCERS = None
-
-
-def _stream_reducers():
-    global _STREAM_REDUCERS
-    if _STREAM_REDUCERS is None:
-        import operator
-
-        _STREAM_REDUCERS = [
-            ((operator.add, jnp.add),
-             lambda v, axis: jnp.sum(v, axis=axis, dtype=v.dtype), jnp.add),
-            ((operator.mul, jnp.multiply),
-             lambda v, axis: jnp.prod(v, axis=axis, dtype=v.dtype), jnp.multiply),
-            ((jnp.minimum,), jnp.min, jnp.minimum),
-            ((jnp.maximum,), jnp.max, jnp.maximum),
-        ]
-    return _STREAM_REDUCERS
-
-
-def _make_stream_reduce_kernel(nR: int, R: int, C: int, f, slab_red, combine,
-                               out_dtype):
-    def kernel(a_hbm, out_ref, s_in, acc, in_sems):
-        rs = jnp.asarray(pl.program_id(1), jnp.int32)
-        cb = jnp.asarray(pl.program_id(0), jnp.int32)
-        slot = rs % 2
-        nxt = (rs + 1) % 2
-
-        def dma(sl, r_):
-            return pltpu.make_async_copy(
-                a_hbm.at[pl.ds(r_ * R, R), pl.ds(cb * C, C)],
-                s_in.at[sl],
-                in_sems.at[sl],
-            )
-
-        @pl.when(rs == 0)
-        def _():
-            dma(0, 0).start()
-
-        @pl.when(rs + 1 < nR)
-        def _():
-            dma(nxt, rs + 1).start()
-
-        dma(slot, rs).wait()
-        partial = slab_red(f(s_in[slot]).astype(out_dtype), 0)
-
-        @pl.when(rs == 0)
-        def _():
-            acc[...] = partial
-
-        @pl.when(rs > 0)
-        def _():
-            acc[...] = combine(acc[...], partial)
-
-        @pl.when(rs == nR - 1)
-        def _():
-            out_ref[...] = acc[...]
-
-    return kernel
-
-
-def _stream_reduce_2d(arr2d, f, slab_red, combine, out_dtype, R, C, interpret):
-    """out[c] = fold over rows of f(arr2d)[:, c]; arr2d (N, M), M % C == 0,
-    N % R == 0 (callers handle tails)."""
-    N, M = arr2d.shape
-    nR = N // R
-    grid = (M // C, nR)
-    return pl.pallas_call(
-        _make_stream_reduce_kernel(nR, R, C, f, slab_red, combine, out_dtype),
-        grid=grid,
-        in_specs=[pl.BlockSpec(memory_space=pl.ANY)],
-        out_specs=pl.BlockSpec((C,), lambda cb, rs: (cb,)),
-        out_shape=jax.ShapeDtypeStruct((M,), out_dtype),
-        scratch_shapes=[
-            pltpu.VMEM((2, R, C), arr2d.dtype),
-            pltpu.VMEM((C,), out_dtype),
-            pltpu.SemaphoreType.DMA((2,)),
-        ],
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            dimension_semantics=("parallel", "arbitrary"),
-            vmem_limit_bytes=32 * 1024 * 1024,
-        ),
-    )(arr2d)
-
-
-# Observability: "stream-kernel" when the last reduction dispatched here;
-# reset to "xla" at every sreduce/sreduce_dims entry (ADVICE r4: never stale).
-LAST_REDUCE_DISPATCH: str = ""
-
-
-def try_stream_reduce(total_f, op, view, axes, rdt):
-    """Dispatch a partial reduction to the streaming kernel when the layout
-    qualifies; returns the dense result in the LOGICAL kept shape (reduced
-    dims dropped) or None.
-
-    Qualifies when: single bijective dense view (a free reshape of its flat
-    parent — includes lazy transposes/permutes); every reduced logical axis
-    sits in the LEADING physical block (so the slab walk is contiguous);
-    the kept block is exactly the SINGLE minor physical dim, a multiple of
-    128, with any middle dims multiples of 8 (the relayout-freedom rules —
-    see the inline comment); the reduced row count is divisible by a slab
-    height in {256..8}; op has a known streaming reducer; dtypes are 4-byte
-    or bf16; the composed map closure captures no arrays; and the problem
-    is large enough to be HBM-bound."""
-    from ..config import get_config
-    from .regularize import decompose
-
-    cfg = get_config()
-    if not (_HAS_PALLAS and cfg.use_pallas and cfg.stream_reductions):
-        return None
-    if view.conj or str(view.dtype) not in ("float32", "bfloat16", "int32"):
-        return None
-    if str(rdt) not in ("float32", "bfloat16", "int32"):
-        return None
-    n_el = 1
-    for d in view.shape:
-        n_el *= d
-    if n_el < cfg.min_stream_reduce_elements:
-        return None
-    reducer = None
-    for ops_, slab_red, combine in _stream_reducers():
-        if any(op is o for o in ops_):
-            reducer = (slab_red, combine)
-            break
-    if reducer is None:
-        return None
-    # closure probe (pallas kernels cannot capture arrays/tracers) + the
-    # map must be elementwise/shape-preserving to apply per-slab
-    try:
-        closed = jax.make_jaxpr(total_f)(jax.ShapeDtypeStruct((1, 1), view.dtype))
-        if any(
-            isinstance(c, (jax.Array, jax.core.Tracer)) or getattr(c, "ndim", 0) > 0
-            for c in closed.consts
-        ):
-            return None
-        out_aval = jax.eval_shape(
-            total_f, jax.ShapeDtypeStruct((2, 3), view.dtype)
-        )
-        if tuple(out_aval.shape) != (2, 3):
-            return None
-    except Exception:
-        return None
-
-    dec = decompose(view.shape, view.strides, view.offset)
-    # bijective dense relabeling of the whole parent, no broadcast dims
-    if dec.overlapping or any(dec.flipped) or dec.min_offset != 0:
-        return None
-    if len(dec.real_axes) != sum(1 for d in view.shape if d != 1):
-        return None
-    n = len(dec.sizes)
-    if n == 0 or dec.strides[-1] != 1:
-        return None
-    for k in range(n - 1):
-        if dec.strides[k] != dec.sizes[k + 1] * dec.strides[k + 1]:
-            return None
-    if math.prod(dec.sizes) != int(view.parent.shape[0]):
-        return None
-
-    axes = set(axes)
-    red_phys = [k for k, a in enumerate(dec.real_axes) if a in axes]
-    kept_phys = [k for k, a in enumerate(dec.real_axes) if a not in axes]
-    # reduced axes must be exactly the leading physical block, and the kept
-    # block exactly the single MINOR physical dim: the kernel views the
-    # operand as (N, M) and on TPU a reshape is only layout-free when the
-    # minor dim is unchanged (merging/splitting it re-tiles the (8, 128)
-    # blocked layout — XLA inserts a hidden full relayout copy, measured
-    # r4: the complete-sum draft that factored an arbitrary M ran at
-    # 221 GB/s vs 730 with the minor preserved). Merging the LEADING dims
-    # into N is free provided interior dims carry no interleaved sublane
-    # padding (every middle dim a multiple of 8).
-    if red_phys != list(range(len(red_phys))) or not red_phys or not kept_phys:
-        return None
-    if len(kept_phys) != 1:
-        return None
-    if len(dec.sizes) > 2 and any(s % 8 for s in dec.sizes[1:-1]):
-        return None
-    N = math.prod(dec.sizes[k] for k in red_phys)
-    M = dec.sizes[kept_phys[0]]
-    C = next((c for c in (4096, 2048, 1024, 512, 256, 128) if M % c == 0), None)
-    if C is None or N < 2:
-        return None
-    # R must DIVIDE N: a ragged last slab would need a dynamic-size DMA, and
-    # slicing the input to a multiple (the r4-draft approach) forces XLA to
-    # materialize a near-full copy of the operand before the opaque kernel —
-    # an extra HBM pass that negates the dispatch. Row-slab starts are
-    # rs * R with R a multiple of 8, so the (8, _) sublane alignment stays
-    # provable. Non-8k row counts decline to XLA.
-    R = next((r for r in (256, 128, 64, 32, 16, 8) if N % r == 0), None)
-    if R is None:
-        return None
-    interpret = cfg.interpret or jax.default_backend() != "tpu"
-
-    arr2d = view.parent.reshape(N, M)
-    slab_red, combine = reducer
-    out = _stream_reduce_2d(arr2d, total_f, slab_red, combine, rdt, R, C, interpret)
-    # physical kept shape -> logical kept order (cheap: M elements)
-    kept_sizes = tuple(dec.sizes[k] for k in kept_phys)
-    out = out.reshape(kept_sizes)
-    kept_logical = sorted(dec.real_axes[k] for k in kept_phys)
-    order = [kept_logical.index(dec.real_axes[k]) for k in kept_phys]
-    # out axes currently in physical order; transpose so axes follow
-    # ascending logical order
-    inv = np.argsort(np.array(order))
-    if list(inv) != list(range(len(order))):
-        out = jnp.transpose(out, tuple(inv))
-    global LAST_REDUCE_DISPATCH
-    LAST_REDUCE_DISPATCH = "stream-kernel"
-    import logging
-
-    logging.getLogger("strided_tpu.dispatch").debug(
-        "sreduce_dims: leading-axis reduction (N=%d, M=%d) -> streaming "
-        "Pallas kernel (R=%d, C=%d)", N, M, R, C,
-    )
-    return out

@@ -7,7 +7,7 @@ HBM exactly twice no matter how many operators appear. Eager pairwise
 operators would instead materialize a dense intermediate per node — the very
 temporaries the reference exists to eliminate (`/root/reference/README.md:101-105`).
 
-:class:`StridedExpr` restores that contract on TPU: Python operators on
+:class:`StridedExpr` restores that contract on the device: Python operators on
 :class:`StridedView` (and on expressions) return a lazy node that records the
 elementwise function and its operand *leaves*; nested nodes are flattened at
 construction (the ``CaptureArgs``/``consume`` walk of
@@ -126,17 +126,17 @@ class StridedExpr:
 
         Structured patterns are recognized first — the transpose-pair family
         ``alpha*A + beta*C.T`` in all its spellings — and each sub-family
-        goes to its MEASURED-best path (r5 collapse-proof crossover,
-        benchmarks/results_tpu_r5.json pair_crossover_rotation):
+        goes to its own path:
 
         - same-buffer pairs (``(v + v.T)/2``, ``v - v.T``, ``3*v + 2*v.T``,
-          `/root/reference/src/linalg.jl:39-42`) ≥ the measured 2048² gate
-          → the two-pass tile-pair kernel (328 vs 274 GB/s at 8192², 592
-          vs 282 at 4000²);
+          `/root/reference/src/linalg.jl:39-42`) at or above
+          ``Config.pair_kernel_min_elements`` → the tile-pair kernel (one
+          read and one write per element instead of two reads and a write);
         - distinct-buffer pairs (``v + w.T``) → the fused XLA expression
-          (407 vs the kernel's 385 at 8192², 3-pass model);
-        - single transposed terms (``3 * v.T``) → generic/XLA (the
-          standalone transpose emitter wins or ties everywhere).
+          (both buffers must be read anyway; the pair schedule saves no
+          bytes);
+        - single transposed terms (``3 * v.T``) → generic/XLA (XLA's
+          transpose emitter; the pair schedule saves no bytes).
 
         Everything else takes the generic fused path."""
         from .broadcast import sbroadcast
@@ -164,12 +164,11 @@ class StridedExpr:
 
 # Observability for tests/benchmarks: which path the last evaluate() took —
 # "pair-kernel" (same-buffer two-term family through the tile-pair kernel),
-# "xla-pair" (distinct-buffer pair through the jitted fused-XLA expression,
-# the r5 measured-best route), or "generic" (the fused engine). Trace-time
-# global, same caveats as executor_pallas.LAST_PLAN. Only set to
-# "pair-kernel" AFTER the shared eligibility predicate
-# (kernels_special.pair_kernel_tile) has confirmed the kernel will actually
-# run (ADVICE r3 item 1).
+# "xla-pair" (distinct-buffer pair through the jitted fused-XLA
+# expression), or "generic" (the fused engine). Recorded at trace time: on a
+# jit cache hit nothing re-traces. Only set to "pair-kernel" AFTER the
+# shared eligibility predicate (kernels_special.pair_kernel_tile) has
+# confirmed the kernel will actually run.
 LAST_EXPR_DISPATCH: str = ""
 
 
@@ -341,15 +340,10 @@ def try_pattern_expr(expr: "StridedExpr"):
         return None
     A, C, alpha, beta, scale_mode, scale, plain_first = m
     if alpha == 0.0:
-        # Single-transposed-term family (``3 .* A'``): measured r5 with the
-        # collapse-proof interleaved-chain harness
-        # (benchmarks/results_tpu_r5.json pair_crossover_rotation), XLA's
-        # standalone transpose codegen streams 648-700 GB/s at 4000^2-5120^2
-        # vs the pair kernel's 239-392, and the two tie at >= 6144^2
-        # (325-330 both) — the kernel never wins a pure scaled transpose,
-        # so the family stays on the generic path (where XLA's transpose
-        # emitter handles it). The kernel retains alpha==0 support for
-        # direct pair_axpby calls.
+        # Single-transposed-term family (``3 .* A'``): one read and one write
+        # per element either way, so the pair schedule saves nothing and
+        # the family stays on the generic path (XLA's transpose emitter).
+        # The kernel retains alpha==0 support for direct pair_axpby calls.
         return None
     if str(A.dtype) not in ("float32", "bfloat16"):
         return None
@@ -360,20 +354,16 @@ def try_pattern_expr(expr: "StridedExpr"):
 
     global LAST_EXPR_DISPATCH
     if C is not None:
-        # Distinct-buffer pairs (A + B.T): measured r5 with the
-        # collapse-proof two-operand chain harness
-        # (results_tpu_r5.json pair_crossover_rotation xla/kernel_distinct):
-        # XLA's fused expression wins — 407 vs 385 GB/s at 8192^2, 426 vs
-        # 419 at 4096^2 (3-pass model). Only ONE of the three passes is a
-        # transposed read, so XLA's fused loop beats the kernel's 6-DMA
-        # pair schedule. Route to the identical-structure fused XLA
-        # expression directly (bit-exact with both other paths).
+        # Distinct-buffer pairs (A + B.T): both buffers are read once and
+        # the output written once by the fused expression too, so the pair
+        # schedule saves no bytes. Route to the identical-structure fused
+        # XLA expression directly.
         LAST_EXPR_DISPATCH = "xla-pair"
         import logging
 
         logging.getLogger("strided_tpu.dispatch").debug(
-            "evaluate: %g*A + %g*C.T (distinct buffers) -> fused XLA "
-            "(measured-best, r5)", alpha, beta,
+            "evaluate: %g*A + %g*C.T (distinct buffers) -> fused XLA",
+            alpha, beta,
         )
         return strided(
             pair_fallback_call(
@@ -469,7 +459,7 @@ def _install_operators(cls):
     # dispatches to np.multiply, which silently MATERIALIZES the view
     # host-side through __array__ (a full device->host fetch) instead of
     # building a lazy expression. None makes numpy return NotImplemented so
-    # Python falls back to our __rmul__ (code-review r5 finding). Explicit
+    # Python falls back to our __rmul__. Explicit
     # np.asarray(view) still works through __array__.
     cls.__array_ufunc__ = None
 
@@ -477,7 +467,7 @@ def _install_operators(cls):
 def _install_reductions(cls):
     """Install the fused-reduction method surface (``.sum/.prod/.max/.min/
     .mean``) and ``@`` on ``cls`` — StridedView and StridedExpr share it
-    (VERDICT r4 item 9), each collapsing through the existing fused
+    each collapsing through the existing fused
     reducers in ONE map+reduce pass."""
 
     def _method(name, reducer_name):

@@ -1,6 +1,6 @@
 """Fused multi-operand map / reduce engine — the heart of the framework.
 
-TPU-native analog of the reference's kernel engine
+XLA-native analog of the reference's kernel engine
 (`/root/reference/src/mapreduce.jl`). The central primitive is
 :func:`fused_mapreduce`, mirroring ``_mapreducedim!``
 (`/root/reference/src/mapreduce.jl:86-96`) including its two key encodings:
@@ -13,17 +13,13 @@ TPU-native analog of the reference's kernel engine
   through the engine (`/root/reference/src/mapreduce.jl:351-423`,
   `/root/reference/src/linalg.jl:144-159`).
 
-Execution is dispatched to one of two backends:
-
-- the **XLA path** (this module): materialize the lazy operands (each is a
-  fusible slice/reshape/transpose recipe, see ``regularize.py``), apply the
-  traced ``f``, reduce with ``op`` — XLA fuses the whole thing into one pass
-  over HBM, which replaces the reference's fused ``@generated`` loop nest
-  (`/root/reference/src/mapreduce.jl:229-425`);
-- the **Pallas path** (``executor_pallas.py``): an explicitly tiled kernel
-  driven by the planner, used when layouts are regular and sizes are large
-  (the analog of the reference's block+thread scheduler engaging above
-  ``MINTHREADLENGTH``).
+Execution lowers to XLA: materialize the lazy operands (each is a fusible
+slice/reshape/transpose recipe, see ``regularize.py``), apply the traced
+``f``, reduce with ``op`` — XLA fuses the whole thing into one pass over
+device memory, which replaces the reference's fused ``@generated`` loop nest
+(`/root/reference/src/mapreduce.jl:229-425`) and its block+thread scheduler
+(XLA's GPU emitters tile transposes through shared memory and pick the
+reduction strategy per layout).
 """
 
 from __future__ import annotations
@@ -130,9 +126,9 @@ def _reduce_vals(op: Callable, vals: jax.Array, axes: Tuple[int, ...]) -> jax.Ar
     # Unknown-identity fold: adjacent-pair tree reduction. The reference
     # *errors* for unknown ops under threading
     # (`/root/reference/src/mapreduce.jl:188-191`); handling them is strictly
-    # more capable, but the r3 implementation (a lax.scan over n-1 flattened
-    # elements) was a scalability trap — 67M sequential steps at 8192^2
-    # (VERDICT r3 weak #1). The tree fold needs only associativity (pairing
+    # more capable, but a lax.scan over n-1 flattened elements would be a
+    # scalability trap (67M sequential steps at 8192^2). The tree fold
+    # needs only associativity (pairing
     # is ADJACENT, so left-to-right order is preserved — no commutativity
     # assumed; reassociation is within Base.mapreduce's documented
     # implementation-defined-associativity contract) and runs in
@@ -208,16 +204,6 @@ def fused_mapreduce(
             new_parent = scatter_into(out_read, initop(old))
             return StridedView(new_parent, out.shape, out.strides, out.offset, out.conj)
         return out  # empty kept dim: no output elements at all
-
-    # Try the Pallas fast path first (large, regular layouts).
-    from . import executor_pallas
-
-    res = executor_pallas.try_fused_mapreduce(f, op, initop, dims, out, ins)
-    if res is not None:
-        _dispatch_log.debug(
-            "fused_mapreduce dims=%s reduce=%s -> pallas", dims, bool(red)
-        )
-        return res
 
     _dispatch_log.debug("fused_mapreduce dims=%s reduce=%s -> xla", dims, bool(red))
     return _xla_fused_mapreduce(f, op, initop, dims, out, ins, red)
@@ -347,9 +333,7 @@ def sreduce(f: Callable, op: Callable, v, init=None):
     reduction dim has stride 0. ``v`` may be a lazy :class:`StridedExpr`:
     its leaves are inlined so map + reduce run as ONE fused pass."""
     from .broadcast import broadcast_views
-    from . import kernels_special
 
-    kernels_special.LAST_REDUCE_DISPATCH = "xla"  # until a kernel claims it
     g, leaves, shape = as_expr_parts(v)
     total_f = lambda *arrs: f(g(*arrs))
     ndim = len(shape)
@@ -382,13 +366,8 @@ def sreduce(f: Callable, op: Callable, v, init=None):
         from .regularize import decompose as _dec
 
         dphys = _dec(leaf.shape, leaf.strides, leaf.offset)
-        # Complete sums stay on XLA (VERDICT r4 item 6): the collapse-proof
-        # dus harness measured XLA at 731-826 GB/s vs the stream kernel's
-        # 696-718 on 8192^2 f32 (benchmarks/results_tpu_r4.json
-        # stream_reduce_dus_harness.complete_sum_*) — the kernel's win is
-        # axis-0 PARTIALS (728-753 vs 692-715), dispatched in sreduce_dims.
-        # Reduce in the PHYSICAL shape (free reshape): XLA's staged 2-D
-        # reduction beats a monolithic flat reduce.
+        # Reduce in the PHYSICAL shape (a free reshape of the parent), so
+        # XLA sees a plain multi-dim reduction instead of a transpose.
         if dphys.sizes:
             arr = arr.reshape(dphys.sizes)
         partial_flat = _reduce_vals(op, total_f(arr), tuple(range(arr.ndim)))
@@ -419,11 +398,7 @@ def sreduce_dims(f: Callable, op: Callable, v, axes, init=None) -> StridedView:
     with the reduced dims kept at size 1. ``v`` may be a lazy
     :class:`StridedExpr` (fused map + partial reduce in one pass)."""
     from .broadcast import broadcast_views
-    from . import kernels_special
 
-    # Observability reset (ADVICE r4): the global must never report a stale
-    # "stream-kernel" after a reduction that took the XLA path.
-    kernels_special.LAST_REDUCE_DISPATCH = "xla"
     g, leaves, shape = as_expr_parts(v)
     total_f = lambda *arrs: f(g(*arrs))
     ndim = len(shape)
@@ -434,20 +409,6 @@ def sreduce_dims(f: Callable, op: Callable, v, axes, init=None) -> StridedView:
     scal = [jax.ShapeDtypeStruct((), b.dtype) for b in bviews]
     rdt = jax.eval_shape(total_f, *scal).dtype
     out_shape = tuple(1 if i in axes else d for i, d in enumerate(shape))
-
-    # Streaming-kernel fast path: single-leaf leading-physical-axis partial
-    # reductions (incl. over lazy transposes) stream at ~763 GB/s vs XLA's
-    # ~698 on HBM-bound sizes (kernels_special.try_stream_reduce; init/
-    # initop folded in afterwards — op(seed, partial), the engine contract).
-    if len(bviews) == 1 and tuple(bviews[0].shape) == tuple(shape):
-        from . import kernels_special
-
-        res = kernels_special.try_stream_reduce(total_f, op, bviews[0], axes, rdt)
-        if res is not None:
-            _dispatch_log.debug("sreduce_dims axes=%s -> stream-kernel", axes)
-            if init is not None:
-                res = op(jnp.asarray(init, rdt), res)
-            return strided(res.reshape(out_shape))
 
     ident = reduce_identity(op, rdt)
     if init is not None:

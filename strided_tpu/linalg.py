@@ -1,12 +1,12 @@
-"""Linear algebra over strided views — MXU dispatch + generic fused kernel.
+"""Linear algebra over strided views — dot_general dispatch + generic fused kernel.
 
-TPU-native analog of `/root/reference/src/linalg.jl`:
+XLA-native analog of `/root/reference/src/linalg.jl`:
 
 - ``mul(C, A, B, alpha, beta)`` implements full gemm semantics
   ``C = alpha * A @ B + beta * C`` (`/root/reference/src/linalg.jl:44-63`).
   Dispatch mirrors the reference's BLAS-vs-generic split
   (`/root/reference/src/linalg.jl:47-49,87-95`): inexact dtypes route to
-  ``lax.dot_general`` — the MXU is this framework's "vendor BLAS" — with
+  ``lax.dot_general`` — cuBLAS on the GPU, this framework's "vendor BLAS" — with
   lazy transpose/conj fused into the operands by XLA (the analog of the
   ``'N'/'T'/'C'`` flag selection at `/root/reference/src/linalg.jl:65-84`);
   exact dtypes (ints — the stand-ins for the reference's
@@ -23,7 +23,7 @@ TPU-native analog of `/root/reference/src/linalg.jl`:
   special cases (`/root/reference/src/linalg.jl:2-42`).
 
 There is no divide-and-conquer threaded gemm (`linalg.jl:97-127`): its job —
-filling all compute units of the chip — is done by XLA's MXU tiling; its
+filling all compute units of the chip — is done by XLA's GEMM library call; its
 cross-chip analog (TP-style sharded matmul) lives in ``parallel/``.
 """
 
@@ -66,7 +66,7 @@ def _as_view(x):
 
 def _pair_route(out, alpha, x, beta=None, y=None):
     """Route the reference's ``axpy!``/``axpby!`` spellings into the
-    structured pattern dispatch (VERDICT r4 item 2):
+    structured pattern dispatch:
     ``axpby!(alpha, A', beta, B)`` (`/root/reference/src/linalg.jl:39-42`)
     is the same transpose-pair workload as the expression spelling
     ``alpha*A.T + beta*B``, so it takes the same measured-best route
@@ -100,9 +100,10 @@ def _pair_route(out, alpha, x, beta=None, y=None):
                 (expr, StridedExpr(_jnp.multiply, (float(beta), y))),
             )
         return try_pattern_into(out, identity_f, (expr,))
-    except Exception:
-        # any shape/layout incompatibility falls back to the generic path,
-        # which raises the documented StridedLayoutError itself
+    except ValueError:
+        # a shape/layout mismatch (StridedLayoutError is a ValueError, as is
+        # an un-broadcastable pair) falls back to the generic path, which
+        # raises the documented StridedLayoutError itself
         return None
 
 
@@ -135,9 +136,9 @@ def scale_into(dst, alpha, src) -> StridedView:
     """``dst .= alpha .* src`` — ``mul!(dst, alpha, src)``
     (`/root/reference/src/linalg.jl:22-31`). A lazy-transposed ``src``
     (``B .= 3 .* A'``, the reference's README row 2) deliberately stays on
-    the generic/XLA path: the r5 crossover measured XLA's standalone
-    transpose emitter winning or tying the pair kernel at every size for
-    pure scaled transposes (DESIGN.md r5 study)."""
+    the generic/XLA path: a pure scaled transpose reads and writes each
+    element once either way, so the pair kernel saves nothing over XLA's
+    transpose emitter."""
     dst = _as_view(dst)
     if _is_static_one(alpha):
         return sbroadcast_into(dst, lambda x: x, _as_view(src))
@@ -160,7 +161,7 @@ def axpy(alpha, x, y) -> StridedView:
 def axpby(alpha, x, beta, y) -> StridedView:
     """``y .= alpha*x + beta*y`` (`/root/reference/src/linalg.jl:39-42`). A
     lazy-transposed square ``x`` over a dense ``y`` routes through the
-    tile-pair kernel (VERDICT r4 item 2), exactly like the expression
+    tile-pair kernel, exactly like the expression
     spelling ``alpha*x.T + beta*y``."""
     y = _as_view(y)
     if _is_static_one(beta):
@@ -187,14 +188,14 @@ def _is_static_one(a) -> bool:
 
 
 def _precision(dtype=None):
-    """MXU precision from config: the analog of choosing accurate BLAS —
-    the reference's baseline is exact/f64 CPU math, so 'highest' (f32 via
-    bf16x3/x6 passes) is the default for f32 operands; set
-    STRIDED_TPU_MATMUL_PRECISION=default for raw-MXU bf16 speed.
+    """Matmul precision from config: the analog of choosing accurate BLAS —
+    the reference's baseline is exact/f64 CPU math, so 'highest' (IEEE FP32
+    on the GPU) is the default for f32 operands; set
+    STRIDED_TPU_MATMUL_PRECISION=default (or high) for TF32 tensor-core
+    speed.
 
-    bf16 operands always use native MXU precision: bf16 inputs multiplied
-    exactly with f32 accumulation lose nothing, and the multi-pass HIGHEST
-    mode would only cost throughput."""
+    bf16 operands always use DEFAULT precision: bf16 inputs multiplied
+    exactly with f32 accumulation lose nothing."""
     if dtype is not None and dtype == jnp.bfloat16:
         return lax.Precision.DEFAULT
     name = get_config().matmul_precision.upper()
@@ -203,7 +204,7 @@ def _precision(dtype=None):
 
 def _mxu_eligible(*dtypes) -> bool:
     """Analog of the BlasFloat check (`/root/reference/src/linalg.jl:47-49`):
-    the MXU path engages for equal inexact dtypes; exact dtypes and mixed
+    the dot_general path engages for equal inexact dtypes; exact dtypes and mixed
     combinations use the generic fused kernel (exactness preserved)."""
     if not get_config().use_mxu:
         return False
@@ -241,7 +242,7 @@ def mul(C, A, B, alpha=1, beta=0) -> StridedView:
 
 
 def _mul_mxu(C, A, B, alpha, beta) -> StridedView:
-    """MXU path: XLA fuses the lazy layout recipes into dot_general operands;
+    """dot_general path: XLA fuses the lazy layout recipes into the operands;
     the alpha/beta epilogue fuses into the result write."""
     a = materialize(A)
     b = materialize(B)
@@ -253,9 +254,9 @@ def _mul_mxu(C, A, B, alpha, beta) -> StridedView:
         b,
         (((1,), (0,)), ((), ())),
         preferred_element_type=acc_dtype,
-        # both operand dtypes matter: DEFAULT (raw bf16 MXU) is only safe
-        # when the promoted dtype is bf16 — a mixed bf16 x f32 matmul must
-        # keep the f32 operand's accuracy
+        # both operand dtypes matter: DEFAULT is only safe when the
+        # promoted dtype is bf16 — a mixed bf16 x f32 matmul must keep the
+        # f32 operand's accuracy
         precision=_precision(jnp.promote_types(a.dtype, b.dtype)),
     )
     if not _is_static_one(alpha):
@@ -302,10 +303,10 @@ def _mul_generic(C, A, B, alpha, beta) -> StridedView:
 
 def contract(subscripts: str, *operands, alpha=1) -> jax.Array:
     """General tensor contraction (einsum) with lazy strided-view operands
-    and the configured MXU precision — the workload family of the
+    and the configured matmul precision — the workload family of the
     reference's tensor-contraction benchmarks
     (`/root/reference/benchmarks/benchtests.jl:70-133`). Views lower to
-    fusible recipes; XLA maps the contraction onto `dot_general`/MXU."""
+    fusible recipes; XLA maps the contraction onto `dot_general`."""
     arrays = [materialize(_as_view(o)) for o in operands]
     common = (
         arrays[0].dtype

@@ -5,10 +5,10 @@ reference has no model code (SURVEY.md §0: Strided.jl is a pure kernel
 library); these models are the workloads that exercise the strided engine the
 way the reference's benchmarks exercise its kernels — batched rollouts are
 fused elementwise maps over ``(batch, horizon, state)`` HBM tensors, and
-linearizations are batched Jacobians feeding MXU matmuls.
+linearizations are batched Jacobians feeding dense matmuls.
 
-Everything is static-shape, scan-friendly, and f32-first (TPU-native; f64 is
-emulated on TPU — SURVEY.md §7 "hard parts").
+Everything is static-shape, scan-friendly, and dtype-generic: f32 on the
+device path, f64 for oracles and the upstream's own dtype.
 """
 
 from __future__ import annotations

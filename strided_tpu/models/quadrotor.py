@@ -24,7 +24,7 @@ def quadrotor(
     Jz=0.02,
 ) -> Model:
     def dynamics(x, u):
-        # dtype-faithful constants: the f32 TPU path must not silently
+        # dtype-faithful constants: the f32 device path must not silently
         # promote to f64 (SURVEY.md §7 precision story)
         J = jnp.array([Jx, Jy, Jz], x.dtype)
         v = x[..., 3:6]

@@ -7,9 +7,9 @@ iteration:
 1. rollout (scan over horizon, fused RK4 body — see ``rollout.py``);
 2. linearization along the trajectory: ``jax.jacfwd`` of the discrete step,
    vmapped over time (and over the scenario batch by the caller) — small
-   (n+m)-wide Jacobians batched into MXU-friendly stacks;
+   (n+m)-wide Jacobians batched into matmul-friendly stacks;
 3. backward Riccati sweep: time-reversed ``lax.scan`` whose body is dense
-   (n,n)/(n,m) matmuls — the TPU analog of the reference's blocked reduction
+   (n,n)/(n,m) matmuls — the analog of the reference's blocked reduction
    over a big dimension (the horizon), sequential by construction exactly
    like reduction dims in the engine (races impossible);
 4. forward pass with the time-varying affine policy and a 3-point

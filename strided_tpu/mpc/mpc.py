@@ -33,7 +33,7 @@ class LinearMPC:
     u_max: jax.Array
     admm_iters: int = 20
     constrained: bool = True
-    # first admm_coarse_iters ADMM iterations run at fast DEFAULT MXU
+    # first admm_coarse_iters ADMM iterations run at fast DEFAULT matmul
     # precision; the rest at the configured precision (see qp_solve)
     admm_coarse_iters: int = 0
 

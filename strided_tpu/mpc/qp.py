@@ -10,22 +10,22 @@ input-space QP
 
     min_U  0.5 U' H U + x0' M' U,   H = Su' Qbar Su + Rbar,  M = Su' Qbar Sx
 
-All per-solve work is MXU matmuls against **precomputed static** matrices
+All per-solve work is dense matmuls against **precomputed static** matrices
 (H's Cholesky factor, the ADMM factor, M) — setup happens once per
 (model, horizon), exactly as a production MPC deploys. Box input constraints
 are handled by over-relaxed ADMM with a fixed iteration count (static shapes,
 scan-friendly); the unconstrained solve collapses to one gain matmul
 (receding-horizon LQR).
 
-Batched solves vmap over ``x0`` — thousands of scenarios become one big MXU
-matmul per ADMM iteration, which is how the 10k-solves/s target is met.
+Batched solves vmap over ``x0`` — thousands of scenarios become one big
+matmul per ADMM iteration (one cuBLAS SGEMM on the GPU).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from functools import partial
-from typing import Optional, Tuple
+from typing import Tuple
 
 import jax
 import jax.numpy as jnp
@@ -48,8 +48,8 @@ class CondensedQP:
     H: jax.Array          # (N*m, N*m)
     M: jax.Array          # (N*m, n)   g = M @ x0
     K_lqr: jax.Array      # (N*m, n)   U* = -K_lqr @ x0 (unconstrained)
-    solver: jax.Array     # (H + rho I)^{-1} (use_chol=False, the fast MXU
-                          # path) OR cholesky(H + rho I) (use_chol=True, the
+    solver: jax.Array     # (H + rho I)^{-1} (use_chol=False, the fast
+                          # matmul path) OR cholesky(H + rho I) (use_chol=True, the
                           # conditioning fallback) — computed in f64 at setup
     rho: float
     N: int
@@ -99,8 +99,8 @@ def build_condensed(A, B, Q, R, QN, N: int, rho: float = 1.0) -> CondensedQP:
     K_lqr = np.linalg.solve(H, M)
     H_admm = H + rho * np.eye(N * m)
     # Explicit inverse (f64, well-conditioned thanks to the +rho I ridge):
-    # turns each ADMM iteration's triangular-solve pair — sequential,
-    # MXU-hostile — into ONE dense batched matmul on the MXU. Guard: if the
+    # turns each ADMM iteration's triangular-solve pair — sequential — into
+    # ONE dense batched matmul. Guard: if the
     # ridge did NOT tame the conditioning (tiny rho / huge N*m), fall back
     # to the Cholesky triangular-solve pair, which stays accurate.
     cond = float(np.linalg.cond(H_admm))
@@ -137,96 +137,12 @@ def _chol_solve(L, b):
     """Solve (L L') z = b for a batch of right-hand sides (b: (*batch, k)).
 
     The batch is folded into the RHS *columns* of one big triangular solve —
-    a single MXU-friendly (k, k) x (k, B) operation instead of B small ones."""
+    a single (k, k) x (k, B) operation instead of B small ones."""
     bshape = b.shape
     bt = b.reshape(-1, bshape[-1]).T  # (k, B)
     y = jax.scipy.linalg.solve_triangular(L, bt, lower=True)
     z = jax.scipy.linalg.solve_triangular(L.T, y, lower=False)
     return z.T.reshape(bshape)
-
-
-def _admm_kernel_tile(B: int) -> Optional[int]:
-    """Batch-tile size for the fused-ADMM Pallas kernel, or None when the
-    kernel cannot run and the XLA scan must be used."""
-    for t in (512, 256, 128, 64, 32, 16, 8):
-        if B % t == 0:
-            return t
-    return None
-
-
-def _fused_admm(g, z0, solver, lo, hi, *, rho: float, alpha: float,
-                iters: int):
-    """All ADMM iterations fused in ONE Pallas kernel, iterates resident in
-    VMEM (r5: the XLA scan round-trips z/y through HBM every iteration —
-    ~52 MB/iter at batch 16384 — which became the bottleneck once the
-    operating point dropped to 6 iterations; keeping the (B_t, N*m) iterate
-    tiles in VMEM across all iterations cuts solve traffic ~8x:
-    read g+z0 once, write z once). The per-tile math is IDENTICAL to the
-    scan body, with the matmul at HIGHEST precision (Mosaic lowers f32
-    HIGHEST like XLA — probed r5, 7.6e-6 agreement vs 0.2 for DEFAULT),
-    so the accuracy gate bounds are unchanged. Grid is batch-parallel;
-    each tile runs its own 6-iteration loop on the MXU."""
-    import functools as _ft
-
-    from jax.experimental import pallas as pl
-
-    from ..config import get_config
-
-    B, D = g.shape
-    cfg = get_config()
-    Bt = _admm_kernel_tile(B)
-    interpret = cfg.interpret or jax.default_backend() != "tpu"
-    lo2 = lo.reshape(1, D)
-    hi2 = hi.reshape(1, D)
-
-    def kernel(g_ref, z0_ref, s_ref, lo_ref, hi_ref, o_ref):
-        g_t = g_ref[...]
-        z = z0_ref[...]
-        y = jnp.zeros_like(z)
-        s = s_ref[...]
-        lo_t = lo_ref[...]
-        hi_t = hi_ref[...]
-        for _ in range(iters):  # static unroll: iterates never leave VMEM
-            u = jnp.dot(rho * (z - y) - g_t, s,
-                        precision=jax.lax.Precision.HIGHEST)
-            u_rel = alpha * u + (1.0 - alpha) * z
-            z = jnp.clip(u_rel + y, lo_t, hi_t)
-            y = y + u_rel - z
-        o_ref[...] = z
-
-    return pl.pallas_call(
-        kernel,
-        grid=(B // Bt,),
-        in_specs=[
-            pl.BlockSpec((Bt, D), lambda i: (i, 0)),
-            pl.BlockSpec((Bt, D), lambda i: (i, 0)),
-            pl.BlockSpec((D, D), lambda i: (0, 0)),
-            pl.BlockSpec((1, D), lambda i: (0, 0)),
-            pl.BlockSpec((1, D), lambda i: (0, 0)),
-        ],
-        out_specs=pl.BlockSpec((Bt, D), lambda i: (i, 0)),
-        out_shape=jax.ShapeDtypeStruct((B, D), g.dtype),
-        interpret=interpret,
-    )(g, z0, solver, lo2, hi2)
-
-
-def _fused_admm_eligible(qp: CondensedQP, z, coarse: int) -> bool:
-    from ..config import get_config
-
-    cfg = get_config()
-    try:
-        from jax.experimental import pallas as pl  # noqa: F401
-    except Exception:  # pragma: no cover
-        return False
-    return (
-        cfg.use_pallas
-        and cfg.fused_admm
-        and not qp.use_chol
-        and coarse == 0
-        and z.ndim == 2
-        and str(z.dtype) == "float32"
-        and _admm_kernel_tile(z.shape[0]) is not None
-    )
 
 
 @matmul_precision_scope
@@ -242,25 +158,23 @@ def qp_solve(
     """Box-constrained condensed QP via over-relaxed ADMM, fixed ``iters``.
 
     x0 ``(*batch, n)``; u_min/u_max ``(m,)`` bounds (applied per stage).
-    Per iteration: one (N*m, N*m) triangular-solve pair + clips — all batched
-    over scenarios into MXU work. Returns U ``(*batch, N, m)``.
+    Per iteration: one (N*m, N*m) dense solve (a matmul against the
+    precomputed inverse) + clips — all batched over scenarios into one
+    matmul. Returns U ``(*batch, N, m)``.
 
     ALL matmuls here (g, the warm start, and the per-iteration solve) run
-    under the configured MXU precision: ADMM converges to the fixed point of
-    the *computed* g, so a bf16-rounded ``g = M x0`` biases every iterate —
-    the r2 bench measured 4.1e-1 first-input error from exactly that leak.
+    under the configured matmul precision: ADMM converges to the fixed point
+    of the *computed* g, so a low-precision ``g = M x0`` biases every
+    iterate.
 
-    ``coarse_iters``: run the FIRST ``coarse_iters`` iterations at the MXU's
-    fast DEFAULT (single-pass bf16) precision and only the remaining ones at
-    the configured precision — an opt-in throughput/accuracy trade, NOT a
-    free lunch: ADMM's contraction is too slow for the accurate tail to
-    absorb the coarse-phase bias, so the headline 1e-4 first-input gate
-    FAILS for any useful split (measured r4 frontier at batch 16384, 20
-    total iters: 12+8 -> 1.1e-2 first-input error at 19.1M solves/s vs
-    2.4e-5 at 12.4M for 0+20; results_tpu_r4.json
-    ``admm_mixed_precision_frontier``). Use when ~1e-2 (0.3 % of input
-    scale) control error is acceptable. ``g`` and the warm start always use
-    the configured precision (the fixed point itself must not be biased)."""
+    ``coarse_iters``: run the FIRST ``coarse_iters`` iterations at DEFAULT
+    precision (TF32 on the GPU) and only the remaining ones at the
+    configured precision — an opt-in throughput/accuracy trade, NOT a free
+    lunch: ADMM's contraction is too slow for the accurate tail to absorb
+    the coarse-phase bias, so expect the headline 1e-4 first-input gate to
+    fail for a useful split (not measured on the GPU). ``g`` and the warm
+    start always use the configured precision (the fixed point itself must
+    not be biased)."""
     g = x0 @ qp.M.T  # (*batch, N*m)
     lo = jnp.tile(u_min, qp.N)
     hi = jnp.tile(u_max, qp.N)
@@ -274,9 +188,9 @@ def qp_solve(
             # conditioning fallback chosen at setup: triangular-solve pair
             u = _chol_solve(qp.solver, rhs)
         else:
-            # (H + rho I)^{-1} rhs as one dense MXU matmul (the inverse is
+            # (H + rho I)^{-1} rhs as one dense matmul (the inverse is
             # symmetric and was formed in f64 at setup, so accuracy matches
-            # the triangular-solve pair while running ~5x faster batched)
+            # the triangular-solve pair)
             u = rhs @ qp.solver
         u_rel = alpha * u + (1 - alpha) * z
         z_new = jnp.clip(u_rel + y, lo, hi)
@@ -284,19 +198,6 @@ def qp_solve(
         return (z_new, y_new), None
 
     coarse = max(0, min(int(coarse_iters), int(iters)))
-    # Fused-ADMM fast path (r5): all iterations in one Pallas kernel with
-    # VMEM-resident iterates — identical math, ~8x less HBM traffic than
-    # the scan (see _fused_admm). Falls back to the scan for Cholesky mode,
-    # mixed-precision schedules, non-f32, or awkward batch sizes.
-    D = z.shape[-1]
-    g2 = g.reshape(-1, D)
-    z2 = z.reshape(-1, D)
-    if _fused_admm_eligible(qp, z2, coarse):
-        zf = _fused_admm(
-            g2, z2, qp.solver, lo, hi,
-            rho=float(qp.rho), alpha=float(alpha), iters=int(iters),
-        )
-        return zf.reshape(*x0.shape[:-1], qp.N, qp.m)
     if coarse:
         with jax.default_matmul_precision("default"):
             (z, y), _ = lax.scan(body, (z, y), None, length=coarse)

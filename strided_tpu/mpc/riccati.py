@@ -2,7 +2,7 @@
 
 The north-star's "condensed-QP / Riccati backward sweep runs as blocked
 reductions" (BASELINE.json): this module is the Riccati half, a
-time-reversed ``lax.scan`` of dense MXU matmuls. It provides both the
+time-reversed ``lax.scan`` of dense matmuls. It provides both the
 time-varying LQR gains and the infinite-horizon (converged) gain, and serves
 as an independent oracle for the condensed-QP solver (same optimal control,
 two different factorizations — cross-checked in tests)."""
@@ -30,7 +30,7 @@ def lqr_gains(A, B, Q, R, QN, N: int):
     """
 
     def body(P, _):
-        # standard discrete Riccati step — all dense matmuls (MXU)
+        # standard discrete Riccati step — all dense matmuls
         BtP = B.T @ P
         S = R + BtP @ B
         K = jnp.linalg.solve(S, BtP @ A)

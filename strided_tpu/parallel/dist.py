@@ -1,12 +1,12 @@
-"""Multi-host runtime initialization — the DCN-facing entry point.
+"""Multi-host runtime initialization — the cross-host entry point.
 
 The reference is a single-process shared-memory library; its "runtime init"
 is ``__init__`` enabling all Julia threads (`/root/reference/src/Strided.jl:50-52`).
-The TPU-native analog for scaling past one host (SURVEY §2.2 distributed-
+The JAX-native analog for scaling past one host (SURVEY §2.2 distributed-
 backend row, §7 L6) is the JAX distributed runtime: every host calls
 :func:`init_distributed` before building meshes; afterwards ``jax.devices()``
-spans the whole slice/pod and the same ``Mesh``/``shard_map`` code paths run
-collectives over ICI within a slice and DCN across hosts.
+spans every host and the same ``Mesh``/``shard_map`` code paths run
+collectives over NVLink within a host and the network across hosts.
 
 Single-process (tests, one chip, CPU) it is a documented no-op, so library
 code can call it unconditionally.
@@ -35,8 +35,8 @@ def init_distributed(
     Returns ``True`` if ``jax.distributed.initialize`` was called, ``False``
     for the single-process no-op. Explicit arguments win; otherwise the
     standard cluster environment (``JAX_COORDINATOR_ADDRESS`` /
-    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``, or a TPU pod runtime that
-    auto-detects) is consulted. Idempotent: repeat calls are no-ops.
+    ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``, or a cluster runtime that
+    JAX auto-detects) is consulted. Idempotent: repeat calls are no-ops.
     """
     global _initialized
     if _initialized:

@@ -15,10 +15,10 @@ through per-task accumulator slots (`/root/reference/src/mapreduce.jl:195-227,
   the chosen iteration dim annotated onto a mesh axis; XLA's GSPMD
   partitioner splits the fused kernel across chips and inserts the
   ``psum``-class collectives for reduction dims (the accumulator-combine of
-  the reference, riding ICI instead of shared memory).
+  the reference, riding the interconnect instead of shared memory).
 
 Tasks→``wait`` becomes sharding-annotation→collective: the scheduling itself
-moves into the compiler, which is the idiomatic TPU division of labor.
+moves into the compiler, which is the idiomatic JAX division of labor.
 """
 
 from __future__ import annotations
@@ -124,15 +124,14 @@ def sharded_batched_pair(
     scale: float = 1.0,
     axis_name: str = "data",
 ) -> jax.Array:
-    """Per-device tile-pair Pallas kernels composed under ``shard_map`` —
-    SURVEY §2.2 row 1's two-tier schedule in one call (VERDICT r4 item 4):
-    ``shard_map`` shards the batch axis over the mesh (the reference's task
-    tier, `/root/reference/src/mapreduce.jl:195-227`), and INSIDE each
-    device's region the pair kernel's grid tiles the matrix (the blocked
-    kernel tier). ``x`` is ``(B, n, n)`` with ``B`` divisible by the mesh
-    size; each device runs :func:`...kernels_special.pair_axpby` over its
-    local matrices via ``lax.map``. Must run under ``jax.jit``."""
-    from jax.experimental.shard_map import shard_map
+    """Per-device tile-pair kernels composed under ``shard_map`` — the
+    two-tier schedule of SURVEY §2.2 row 1 in one call: ``shard_map`` shards
+    the batch axis over the mesh (the reference's task tier,
+    `/root/reference/src/mapreduce.jl:195-227`), and INSIDE each device's
+    region the pair kernel's grid tiles the matrix (the blocked kernel
+    tier). ``x`` is ``(B, n, n)`` with ``B`` divisible by the mesh size; each
+    device runs :func:`...kernels_special.pair_axpby` over its local
+    matrices via ``lax.map``. Must run under ``jax.jit``."""
     from ..core.kernels_special import pair_axpby
 
     if x.ndim != 3 or x.shape[1] != x.shape[2]:
@@ -146,12 +145,12 @@ def sharded_batched_pair(
             block,
         )
 
-    return shard_map(
+    return jax.shard_map(
         per_device,
         mesh=mesh,
         in_specs=P(axis_name),
         out_specs=P(axis_name),
-        check_rep=False,  # opaque pallas_call inside
+        check_vma=False,  # opaque pallas_call inside
     )(x)
 
 
@@ -161,35 +160,21 @@ def sharded_stream_sum(
     *,
     axis_name: str = "data",
 ) -> jax.Array:
-    """Leading-axis column sum of a row-sharded matrix with the streaming
-    manual-DMA reduction kernel running PER DEVICE inside ``shard_map`` and
-    a ``psum`` combining the per-device partials over the mesh — the
-    reference's accumulator-slot combine
-    (`/root/reference/src/mapreduce.jl:153-170`) as an ICI all-reduce, with
-    the Pallas kernel as the per-device engine (VERDICT r4 item 4).
-    ``x`` is ``(N, M)`` sharded on axis 0; returns the dense ``(M,)`` sum
-    (replicated). Falls back to XLA's reduction per-shard when the kernel's
-    eligibility gate declines (small shards, ineligible layout)."""
-    from jax.experimental.shard_map import shard_map
-    from ..core.kernels_special import try_stream_reduce
-    from ..core.view import StridedView
+    """Leading-axis column sum of a row-sharded matrix: a local ``jnp.sum``
+    per device inside ``shard_map`` and a ``psum`` combining the per-device
+    partials over the mesh — the reference's accumulator-slot combine
+    (`/root/reference/src/mapreduce.jl:153-170`) as an all-reduce. ``x`` is
+    ``(N, M)`` sharded on axis 0; returns the dense ``(M,)`` sum
+    (replicated)."""
 
     def per_device(block):
-        b2 = block.reshape(block.shape[0], block.shape[1])
-        view = StridedView(
-            b2.reshape(-1), b2.shape, (b2.shape[1], 1), 0, False
-        )
-        res = try_stream_reduce(lambda v: v, jnp.add, view, (0,), b2.dtype)
-        if res is None:
-            res = jnp.sum(b2, axis=0, dtype=b2.dtype)
-        return lax.psum(res, axis_name)
+        return lax.psum(jnp.sum(block, axis=0, dtype=block.dtype), axis_name)
 
-    return shard_map(
+    return jax.shard_map(
         per_device,
         mesh=mesh,
         in_specs=P(axis_name),
         out_specs=P(),
-        check_rep=False,
     )(x)
 
 
@@ -206,7 +191,7 @@ def sharded_reduce(
     the mesh. Partial reductions shard a KEPT dim (device-disjoint outputs,
     race-free by construction); complete reductions shard a reduced dim and
     let GSPMD insert the ``psum`` — the accumulator-slot combine of
-    `/root/reference/src/mapreduce.jl:153-170` as an ICI all-reduce.
+    `/root/reference/src/mapreduce.jl:153-170` as an all-reduce.
 
     Returns a :class:`StridedView` over the kept dims (matching the local
     ``sreduce_dims``), or a 0-d array for a complete reduction (matching

@@ -1,9 +1,9 @@
 """Device-mesh helpers — the multi-chip layer's foundation.
 
 The reference's only parallel substrate is the intra-process task tree
-(`/root/reference/src/mapreduce.jl:195-227`); its TPU-native replacement
+(`/root/reference/src/mapreduce.jl:195-227`); its JAX-native replacement
 (SURVEY.md §2.2) is a `jax.sharding.Mesh` with named axes, collectives over
-ICI/DCN, and `shard_map` regions. This module centralizes mesh construction
+the device interconnect, and `shard_map` regions. This module centralizes mesh construction
 so tests (8 virtual CPU devices), the driver's multi-chip dry-run, and real
 pod slices all go through the same code.
 """

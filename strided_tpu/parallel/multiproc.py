@@ -1,7 +1,7 @@
 """Multi-process distributed-runtime proof harness (SURVEY §2.2
-distributed-backend row; VERDICT r3 missing #2).
+distributed-backend row).
 
-The reference's scheduler is shared-memory only; the framework's DCN-facing
+The reference's scheduler is shared-memory only; the framework's cross-process
 analog is ``jax.distributed`` + the same Mesh/shard_map code paths. This
 module provides an *executable* proof that those paths work across real
 process boundaries: :func:`run_multiprocess_check` launches N localhost

@@ -1,6 +1,6 @@
 """shard_map scenario parallelism + collective reductions.
 
-TPU-native replacement for the reference's thread scheduler
+JAX-native replacement for the reference's thread scheduler
 (`/root/reference/src/mapreduce.jl:141-227`), following the same two rules
 re-expressed over a device mesh (SURVEY.md §2.2, §5):
 
@@ -9,7 +9,7 @@ re-expressed over a device mesh (SURVEY.md §2.2, §5):
   races are impossible by construction (the cost-zeroing rule of
   `/root/reference/src/mapreduce.jl:172-177`);
 - *reductions combine via collectives*: per-device partial results meet in
-  ``psum``/``pmean`` over ICI — the analog of the per-task accumulator slots
+  ``psum``/``pmean`` over the interconnect — the analog of the per-task accumulator slots
   + serial combine (`/root/reference/src/mapreduce.jl:153-170`), with the
   false-sharing spacing trick replaced by XLA's all-reduce.
 """
@@ -22,10 +22,7 @@ from typing import Callable, Optional
 import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from .mesh import make_mesh, data_sharding
 
@@ -79,7 +76,7 @@ def sharded_mpc_step(ctrl, model, mesh: Mesh, dt, axis: str = "data"):
 
 def scenario_consensus_control(ctrl, mesh: Mesh, axis: str = "data"):
     """Scenario-MPC consensus: every device solves its local scenarios' QPs,
-    then the first-stage controls are **all-reduced (pmean) over ICI** into
+    then the first-stage controls are **all-reduced (pmean) over the mesh** into
     one consensus control — BASELINE.json config 5's 'QP-block all-reduce'.
 
     Returns a function (B, n) -> ((m,) consensus u, (B, N, m) local plans).

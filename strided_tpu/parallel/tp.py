@@ -3,7 +3,7 @@ reference's divide-and-conquer threaded gemm.
 
 The reference's opt-in `_threaded_blas_mul!` recursively splits the larger of
 (m, n) across Julia tasks, each leaf calling BLAS on its disjoint output
-block (`/root/reference/src/linalg.jl:97-127`). On a TPU mesh the same three
+block (`/root/reference/src/linalg.jl:97-127`). On a device mesh the same three
 decompositions exist, with XLA collectives instead of task joins
 (SURVEY.md §2.2 row 3):
 
@@ -12,7 +12,7 @@ decompositions exist, with XLA collectives instead of task joins
   reference's race-free task split);
 - :func:`matmul_msplit` — split M (output rows): same, sharded over rows;
 - :func:`matmul_ksplit` — split the contraction dim: each device computes a
-  partial product, combined with ``psum`` over ICI (the analog of the
+  partial product, combined with ``psum`` over the mesh (the analog of the
   per-task accumulator slots + combine, `/root/reference/src/mapreduce.jl:153-170`).
 """
 
@@ -23,10 +23,7 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 __all__ = ["matmul_nsplit", "matmul_msplit", "matmul_ksplit"]
 
@@ -67,7 +64,7 @@ def matmul_msplit(A, B, mesh: Mesh, axis: str = "data", precision=None):
 
 def matmul_ksplit(A, B, mesh: Mesh, axis: str = "data", precision=None):
     """C = A @ B with the contraction dim sharded: local partial matmuls
-    combined by ``psum`` over the mesh axis (tree all-reduce over ICI)."""
+    combined by ``psum`` over the mesh axis (an all-reduce)."""
 
     def local(a, b):
         part = _dot(a, b, precision)

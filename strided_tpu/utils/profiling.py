@@ -2,7 +2,7 @@
 
 The reference has no built-in tracing (a commented-out timing probe at
 `/root/reference/src/mapreduce.jl:148-149`); profiling is external
-BenchmarkTools. The TPU equivalents wired here: the JAX profiler (Perfetto
+BenchmarkTools. The JAX equivalents wired here: the JAX profiler (Perfetto
 traces viewable in ui.perfetto.dev / xprof) and named annotation ranges.
 """
 

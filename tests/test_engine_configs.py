@@ -1,8 +1,9 @@
-"""Dual-config engine pass — the analog of the reference running its whole
+"""Multi-config engine pass — the analog of the reference running its whole
 suite once serial and once multithreaded (`/root/reference/test/runtests.jl:10-24`):
-the same value-level assertions run with the Pallas path forced on (low size
-threshold, interpret mode on CPU) and with it off, and both must agree with
-the oracle bit-for-bit where exact."""
+the same value-level assertions run with the hand-written kernels engaged at
+every size (interpret mode on CPU), with them off, and with the dot_general
+matmul dispatch off, and all must agree with the oracle bit-for-bit where
+exact."""
 
 import numpy as np
 import pytest
@@ -22,25 +23,19 @@ from strided_tpu.core.broadcast import sbroadcast, sbroadcast_into
 from strided_tpu.core.regularize import materialize
 
 
-@pytest.fixture(params=["pallas", "xla"])
+ENGINE_CONFIGS = {
+    "pallas": dict(use_pallas=True, pair_kernel_min_elements=1),
+    "xla": dict(use_pallas=False),
+    "nomxu": dict(use_mxu=False),
+}
+
+
+@pytest.fixture(params=sorted(ENGINE_CONFIGS))
 def engine(request):
     old = cfg.get_config()
-    if request.param == "pallas":
-        cfg.set_config(
-            use_pallas=True, min_pallas_elements=256, pair_kernel_min_elements=256, pallas_map_min_elements=256, pallas_reductions=True,
-            pallas_aligned_maps=True
-        )
-    else:
-        cfg.set_config(use_pallas=False)
+    cfg.set_config(**ENGINE_CONFIGS[request.param])
     yield request.param
-    cfg.set_config(
-        use_pallas=old.use_pallas,
-        min_pallas_elements=old.min_pallas_elements,
-        pair_kernel_min_elements=old.pair_kernel_min_elements,
-        pallas_map_min_elements=old.pallas_map_min_elements,
-        pallas_reductions=old.pallas_reductions,
-        pallas_aligned_maps=old.pallas_aligned_maps,
-    )
+    cfg.set_config(**{k: getattr(old, k) for k in old.__dataclass_fields__})
 
 
 def rand32(shape, seed=0):
@@ -55,6 +50,15 @@ def test_symmetrize_both_paths(engine):
     np.testing.assert_allclose(
         np.asarray(res.parent).reshape(128, 128), (a + a.T) / 2, rtol=1e-6
     )
+
+
+def test_symmetrize_expression_both_paths(engine):
+    """The lazy flagship spelling: the tile-pair kernel under ``pallas``,
+    XLA's fused expression otherwise — bit-identical either way."""
+    a = rand32((192, 192), seed=8)
+    v = st.strided(jnp.asarray(a))
+    got = np.asarray(((v + st.transpose(v)) / 2).materialize())
+    np.testing.assert_array_equal(got, (a + a.T) / np.float32(2))
 
 
 def test_permute_copy_both_paths(engine):

@@ -307,24 +307,25 @@ def test_contract_einsum_over_views():
 
 
 def test_linalg_pair_kernel_routes():
-    """The reference's LITERAL linalg spellings hit the tile-pair kernel
-    (VERDICT r4 item 2): ``axpby!(alpha, A', beta, B)``
+    """The reference's LITERAL linalg spellings hit the tile-pair kernel:
+    ``axpby!(alpha, A', beta, B)``
     (`/root/reference/src/linalg.jl:39-42`), ``axpy!(alpha, A', B)``
     (`:33-37`), and ``mul!(B, alpha, A')`` (`:22-31`) with a lazy-transposed
     square operand dispatch exactly like the expression spellings — pinned
-    via LAST_EXPR_DISPATCH and bit-exact vs the identical XLA expression."""
+    via LAST_EXPR_DISPATCH and checked against the identical XLA
+    expression."""
     import jax
     from strided_tpu.core import lazy_expr as le
 
     old = cfg.get_config()
     try:
-        cfg.set_config(min_pallas_elements=1024, pair_kernel_min_elements=1024, use_pallas=True)
+        cfg.set_config(pair_kernel_min_elements=1024, use_pallas=True)
         rng = np.random.default_rng(21)
         a = jnp.asarray(rng.standard_normal((256, 256)), jnp.float32)
         b = jnp.asarray(rng.standard_normal((256, 256)), jnp.float32)
         v = st.strided(a)
 
-        # distinct buffers -> the measured-best fused-XLA pair route (r5)
+        # distinct buffers -> the fused-XLA pair route
         le.LAST_EXPR_DISPATCH = ""
         got = np.asarray(st.to_array(axpby(3.0, st.transpose(v), 2.0, st.strided(b))))
         assert le.LAST_EXPR_DISPATCH == "xla-pair"
@@ -339,9 +340,8 @@ def test_linalg_pair_kernel_routes():
             got, np.asarray(jax.jit(lambda x, y: 3.0 * x.T + y)(a, b))
         )
 
-        # scale_into (mul!(B, 3, A')): single-term family — measured r5,
-        # XLA's transpose codegen wins (results_tpu_r5.json), so this stays
-        # on the generic path; values pinned.
+        # scale_into (mul!(B, 3, A')): single-term family — stays on the
+        # generic path (XLA's transpose emitter); values pinned.
         dst = st.strided(jnp.zeros((256, 256), jnp.float32))
         le.LAST_EXPR_DISPATCH = ""
         got = np.asarray(st.to_array(st.scale_into(dst, 3.0, st.transpose(v))))
@@ -350,13 +350,15 @@ def test_linalg_pair_kernel_routes():
             got, np.asarray(jax.jit(lambda x: x.T * 3.0)(a)), rtol=1e-6
         )
 
-        # same-buffer spelling: axpby!(3, A', 2, A) — 2-pass kernel
+        # same-buffer spelling: axpby!(3, A', 2, A) — the tile-pair kernel;
+        # a separately compiled program, so its FMA contraction may move
+        # the last ulp (see test_lazy_expr::test_pair_term_order_bit_exact)
         le.LAST_EXPR_DISPATCH = ""
         got = np.asarray(st.to_array(axpby(3.0, st.transpose(v), 2.0, v)))
         assert le.LAST_EXPR_DISPATCH == "pair-kernel"
-        np.testing.assert_array_equal(
-            got, np.asarray(jax.jit(lambda x: 3.0 * x.T + 2.0 * x)(a))
-        )
+        want = np.asarray(jax.jit(lambda x: 3.0 * x.T + 2.0 * x)(a))
+        an = np.asarray(a)
+        assert (np.abs(got - want) <= 2 * np.spacing(3 * np.abs(an.T) + 2 * np.abs(an))).all()
     finally:
         cfg.set_config(**{k: getattr(old, k) for k in old.__dataclass_fields__})
 
@@ -368,7 +370,7 @@ def test_linalg_pair_route_fallbacks_unchanged():
 
     old = cfg.get_config()
     try:
-        cfg.set_config(min_pallas_elements=1024, pair_kernel_min_elements=1024, use_pallas=True)
+        cfg.set_config(pair_kernel_min_elements=1024, use_pallas=True)
         rng = np.random.default_rng(22)
         a = jnp.asarray(rng.standard_normal((64, 96)), jnp.float32)
         b = jnp.asarray(rng.standard_normal((96, 64)), jnp.float32)

@@ -137,8 +137,7 @@ def _tree_fold_oracle(xs, op):
 
 
 def test_reduce_unknown_op_fold():
-    # op with unknown identity -> adjacent-pair tree fold (VERDICT r3 weak
-    # #1: the r3 sequential scan was a 67M-step trap at 8192^2)
+    # op with unknown identity -> adjacent-pair tree fold
     a = rand((4, 5))
     v = st.strided(jnp.asarray(a))
     got = sreduce(lambda x: x, lambda p, q: jnp.arctan2(p, q), v)
@@ -344,7 +343,7 @@ def test_convenience_reductions():
 
 
 def test_map_scalar_operands_supported():
-    """Python-scalar operands are captured, not iterated (ADVICE r1 fix):
+    """Python-scalar operands are captured, not iterated:
     map_into/smap must accept them exactly like sbroadcast does."""
     a = np.random.default_rng(0).standard_normal((8, 8))
     v = st.strided(jnp.asarray(a))
@@ -359,8 +358,7 @@ def test_map_scalar_operands_supported():
 
 
 def test_smean_axis_is_one_fused_pass(monkeypatch):
-    """smean(axis) folds 1/n into the map stage: exactly ONE engine call
-    (VERDICT r1 item 9 — no second divide kernel over the reduced output)."""
+    """smean(axis) folds 1/n into the map stage: exactly ONE engine call."""
     from strided_tpu.core import mapreduce as mr
 
     calls = []
@@ -380,163 +378,181 @@ def test_smean_axis_is_one_fused_pass(monkeypatch):
     )
 
 
-# -- streaming reduction kernel dispatch (VERDICT r3 item 6) ----------------
-# Leading-physical-axis partial reductions route to the manual-DMA streaming
-# kernel (763 GB/s vs XLA 698 measured r4, benchmarks/exp_reduce.py); the
-# interpret-mode tests pin dispatch + exactness.
-
-
-def _stream_cfg():
-    from strided_tpu.config import set_config, get_config
-
-    old = get_config()
-    set_config(use_pallas=True, stream_reductions=True,
-               min_stream_reduce_elements=1024)
-    return old
-
-
-def _restore_cfg(old):
-    from strided_tpu.config import set_config
-
-    set_config(**{k: getattr(old, k) for k in old.__dataclass_fields__})
+# -- leading-axis partial reductions (the layouts a streaming reduction
+# kernel would serve; XLA's reduction emitter runs them) ---------------------
 
 
 def test_stream_reduce_axis0_exact_int():
-    from strided_tpu.core import kernels_special as ks
-
-    old = _stream_cfg()
-    try:
-        a = rand((320, 256), np.int32, seed=11)  # N % 256 != 0: R drops to 64
-        v = st.strided(jnp.asarray(a))
-        ks.LAST_REDUCE_DISPATCH = ""
-        got = sreduce_dims(lambda x: x, jnp.add, v, (0,))
-        assert ks.LAST_REDUCE_DISPATCH == "stream-kernel"
-        np.testing.assert_array_equal(
-            np.asarray(got.parent).reshape(1, 256), a.sum(0, keepdims=True)
-        )
-    finally:
-        _restore_cfg(old)
+    a = rand((320, 256), np.int32, seed=11)
+    v = st.strided(jnp.asarray(a))
+    got = sreduce_dims(lambda x: x, jnp.add, v, (0,))
+    np.testing.assert_array_equal(
+        np.asarray(got.parent).reshape(1, 256), a.sum(0, keepdims=True)
+    )
 
 
 def test_stream_reduce_transposed_view_and_ops():
-    from strided_tpu.core import kernels_special as ks
-
-    old = _stream_cfg()
-    try:
-        a = rand((256, 512), np.float32, seed=12)
-        # sum over logical axis 1 of the LAZY TRANSPOSE = physical axis 0
-        vt = st.transpose(st.strided(jnp.asarray(a)))  # logical (512, 256)
-        ks.LAST_REDUCE_DISPATCH = ""
-        got = sreduce_dims(lambda x: x, jnp.add, vt, (1,))
-        assert ks.LAST_REDUCE_DISPATCH == "stream-kernel"
-        np.testing.assert_allclose(
-            np.asarray(got.parent).reshape(512), a.sum(0), rtol=1e-4,
-            atol=1e-4,  # f32 accumulation-order tolerance
-        )
-        # max / min / prod reducers
-        ks.LAST_REDUCE_DISPATCH = ""
-        gmax = sreduce_dims(lambda x: x, jnp.maximum, st.strided(jnp.asarray(a)), (0,))
-        assert ks.LAST_REDUCE_DISPATCH == "stream-kernel"
-        np.testing.assert_array_equal(
-            np.asarray(gmax.parent).reshape(512), a.max(0)
-        )
-    finally:
-        _restore_cfg(old)
+    a = rand((256, 512), np.float32, seed=12)
+    # sum over logical axis 1 of the LAZY TRANSPOSE = physical axis 0
+    vt = st.transpose(st.strided(jnp.asarray(a)))  # logical (512, 256)
+    got = sreduce_dims(lambda x: x, jnp.add, vt, (1,))
+    np.testing.assert_allclose(
+        np.asarray(got.parent).reshape(512), a.sum(0), rtol=1e-4,
+        atol=1e-4,  # f32 accumulation-order tolerance
+    )
+    gmax = sreduce_dims(lambda x: x, jnp.maximum, st.strided(jnp.asarray(a)), (0,))
+    np.testing.assert_array_equal(np.asarray(gmax.parent).reshape(512), a.max(0))
 
 
 def test_stream_reduce_fused_map_and_declines():
-    from strided_tpu.core import kernels_special as ks
-
-    old = _stream_cfg()
-    try:
-        a = rand((256, 256), np.float32, seed=13)
-        v = st.strided(jnp.asarray(a))
-        # fused elementwise map runs inside the kernel slab
-        ks.LAST_REDUCE_DISPATCH = ""
-        got = sreduce_dims(jnp.abs, jnp.add, v, (0,))
-        assert ks.LAST_REDUCE_DISPATCH == "stream-kernel"
-        np.testing.assert_allclose(
-            np.asarray(got.parent).reshape(256), np.abs(a).sum(0), rtol=1e-4,
-            atol=1e-4,  # f32 accumulation order
-        )
-        # minor-axis reduction must DECLINE (kept block not trailing-contig)
-        ks.LAST_REDUCE_DISPATCH = ""
-        got2 = sreduce_dims(lambda x: x, jnp.add, v, (1,))
-        assert ks.LAST_REDUCE_DISPATCH == "xla"
-        np.testing.assert_allclose(
-            np.asarray(got2.parent).reshape(256), a.sum(1), rtol=1e-4, atol=1e-4
-        )
-        # non-8-divisible reduced row count declines (no tail-copy path)
-        a9 = rand((301, 256), np.float32, seed=19)
-        ks.LAST_REDUCE_DISPATCH = ""
-        got9 = sreduce_dims(lambda x: x, jnp.add, st.strided(jnp.asarray(a9)), (0,))
-        assert ks.LAST_REDUCE_DISPATCH == "xla"
-        np.testing.assert_allclose(
-            np.asarray(got9.parent).reshape(256), a9.sum(0), rtol=1e-4, atol=1e-4
-        )
-        # windowed (non-bijective) view declines
-        w = st.sview(st.strided(jnp.asarray(a)), (slice(0, 128), slice(None)))
-        ks.LAST_REDUCE_DISPATCH = ""
-        got3 = sreduce_dims(lambda x: x, jnp.add, w, (0,))
-        assert ks.LAST_REDUCE_DISPATCH == "xla"
-        np.testing.assert_allclose(
-            np.asarray(got3.parent).reshape(256), a[:128].sum(0), rtol=1e-4,
-            atol=1e-4
-        )
-    finally:
-        _restore_cfg(old)
+    a = rand((256, 256), np.float32, seed=13)
+    v = st.strided(jnp.asarray(a))
+    # fused elementwise map + reduction in one pass
+    got = sreduce_dims(jnp.abs, jnp.add, v, (0,))
+    np.testing.assert_allclose(
+        np.asarray(got.parent).reshape(256), np.abs(a).sum(0), rtol=1e-4,
+        atol=1e-4,  # f32 accumulation order
+    )
+    # minor-axis reduction
+    got2 = sreduce_dims(lambda x: x, jnp.add, v, (1,))
+    np.testing.assert_allclose(
+        np.asarray(got2.parent).reshape(256), a.sum(1), rtol=1e-4, atol=1e-4
+    )
+    # reduced row count not a multiple of 8
+    a9 = rand((301, 256), np.float32, seed=19)
+    got9 = sreduce_dims(lambda x: x, jnp.add, st.strided(jnp.asarray(a9)), (0,))
+    np.testing.assert_allclose(
+        np.asarray(got9.parent).reshape(256), a9.sum(0), rtol=1e-4, atol=1e-4
+    )
+    # windowed (non-bijective) view
+    w = st.sview(st.strided(jnp.asarray(a)), (slice(0, 128), slice(None)))
+    got3 = sreduce_dims(lambda x: x, jnp.add, w, (0,))
+    np.testing.assert_allclose(
+        np.asarray(got3.parent).reshape(256), a[:128].sum(0), rtol=1e-4,
+        atol=1e-4
+    )
 
 
 def test_stream_reduce_3d_leading_axes_and_kept_minor():
-    """Reduce the two leading logical axes of a 3-D view (kept block = the
-    single physical minor dim — the only layout the kernel accepts without
-    a hidden relayout; see try_stream_reduce). Exercises init seeding, and
-    pins that a MULTI-dim kept block declines (reshaping it would re-tile
-    the minor dim -> relayout copy on TPU)."""
-    from strided_tpu.core import kernels_special as ks
-
-    old = _stream_cfg()
-    try:
-        a = rand((320, 16, 128), np.float32, seed=14)
-        v = st.strided(jnp.asarray(a))
-        ks.LAST_REDUCE_DISPATCH = ""
-        got = sreduce_dims(lambda x: x, jnp.add, v, (0, 1), init=2.5)
-        assert ks.LAST_REDUCE_DISPATCH == "stream-kernel"
-        np.testing.assert_allclose(
-            np.asarray(got.parent).reshape(128), a.sum((0, 1)) + 2.5,
-            rtol=1e-3, atol=1e-3
-        )
-        # kept block spanning two physical dims declines
-        ks.LAST_REDUCE_DISPATCH = ""
-        got2 = sreduce_dims(lambda x: x, jnp.add, v, (0,))
-        assert ks.LAST_REDUCE_DISPATCH == "xla"
-        np.testing.assert_allclose(
-            np.asarray(got2.parent).reshape(16, 128), a.sum(0),
-            rtol=1e-4, atol=1e-4
-        )
-    finally:
-        _restore_cfg(old)
+    """Reduce the two leading logical axes of a 3-D view with ``init``
+    seeding, and the leading axis alone (a kept block of two dims)."""
+    a = rand((320, 16, 128), np.float32, seed=14)
+    v = st.strided(jnp.asarray(a))
+    got = sreduce_dims(lambda x: x, jnp.add, v, (0, 1), init=2.5)
+    np.testing.assert_allclose(
+        np.asarray(got.parent).reshape(128), a.sum((0, 1)) + 2.5,
+        rtol=1e-3, atol=1e-3
+    )
+    got2 = sreduce_dims(lambda x: x, jnp.add, v, (0,))
+    np.testing.assert_allclose(
+        np.asarray(got2.parent).reshape(16, 128), a.sum(0),
+        rtol=1e-4, atol=1e-4
+    )
 
 
 def test_stream_reduce_complete_sum_stays_on_xla():
-    """Complete reductions do NOT dispatch to the stream kernel (VERDICT r4
-    item 6): the collapse-proof dus harness measured XLA at 731-826 GB/s vs
-    the kernel's 696-718 at 8192^2 f32
-    (benchmarks/results_tpu_r4.json stream_reduce_dus_harness.complete_sum_*)
-    — the kernel's win is axis-0 PARTIALS only. Values stay exact through
-    the layout-invariance fast path."""
-    from strided_tpu.core import kernels_special as ks
+    """Complete reductions over a lazy layout take the layout-invariance
+    fast path (reduce the flat parent); values stay exact."""
+    a = rand((512, 256), np.int32, seed=15)
+    v = st.transpose(st.strided(jnp.asarray(a)))  # lazy layout
+    got = sreduce(lambda x: x, jnp.add, v)
+    assert int(got) == int(a.sum())
+    gmin = sreduce(lambda x: x, jnp.minimum, st.strided(jnp.asarray(a)))
+    assert int(gmin) == int(a.min())
 
-    old = _stream_cfg()
-    try:
-        a = rand((512, 256), np.int32, seed=15)
-        v = st.transpose(st.strided(jnp.asarray(a)))  # lazy layout
-        ks.LAST_REDUCE_DISPATCH = "stream-kernel"  # stale value must clear
-        got = sreduce(lambda x: x, jnp.add, v)
-        assert ks.LAST_REDUCE_DISPATCH == "xla"
-        assert int(got) == int(a.sum())
-        gmin = sreduce(lambda x: x, jnp.minimum, st.strided(jnp.asarray(a)))
-        assert ks.LAST_REDUCE_DISPATCH == "xla"
-        assert int(gmin) == int(a.min())
-    finally:
-        _restore_cfg(old)
+
+# -- fused_mapreduce on scrambled layouts (the cases the removed tile
+# executor served), checked against numpy ------------------------------------
+
+
+def test_map_symmetrize():
+    a = np.random.default_rng(0).standard_normal((256, 256)).astype(np.float32)
+    A = st.strided(jnp.asarray(a))
+    B = st.strided(jnp.zeros((256, 256), jnp.float32))
+    res = st.fused_mapreduce(
+        lambda x, y: (x + y) / 2, None, None, (256, 256), B, [A, st.transpose(A)]
+    )
+    np.testing.assert_allclose(
+        np.asarray(res.parent).reshape(256, 256), (a + a.T) / 2, rtol=1e-6
+    )
+
+
+def test_map_into_transposed_out():
+    # out itself is a lazy transpose (write-side permutation)
+    a = np.random.default_rng(1).standard_normal((128, 256)).astype(np.float32)
+    A = st.strided(jnp.asarray(a))
+    buf = st.strided(jnp.zeros((256, 128), jnp.float32))
+    out = st.transpose(buf)  # logical (128, 256)
+    res = st.fused_mapreduce(lambda x: 2 * x, None, None, (128, 256), out, [A])
+    np.testing.assert_allclose(
+        np.asarray(res.parent).reshape(256, 128), 2 * a.T, rtol=1e-6
+    )
+
+
+def test_rank4_permute_copy():
+    t = np.random.default_rng(2).standard_normal((16, 8, 16, 8)).astype(np.float32)
+    T = st.strided(jnp.asarray(t))
+    P = st.permutedims(T, (3, 2, 1, 0))
+    out = st.strided(jnp.zeros((8, 16, 8, 16), jnp.float32))
+    res = st.fused_mapreduce(lambda x: x, None, None, (8, 16, 8, 16), out, [P])
+    np.testing.assert_array_equal(
+        np.asarray(res.parent).reshape(8, 16, 8, 16),
+        np.transpose(t, (3, 2, 1, 0)),
+    )
+
+
+def test_reduction_with_initop_beta():
+    beta = 2.5
+    a = np.random.default_rng(3).standard_normal((64, 1024)).astype(np.float32)
+    c0 = np.random.default_rng(4).standard_normal((64,)).astype(np.float32)
+    A = st.strided(jnp.asarray(a))
+    out_buf = st.strided(jnp.asarray(c0.copy()))
+    out = StridedView(out_buf.parent, (64, 1024), (1, 0), 0, False)
+    res = st.fused_mapreduce(
+        lambda x: x * x, jnp.add, lambda z: beta * z, (64, 1024), out, [A]
+    )
+    expect = beta * c0 + (a * a).sum(axis=1)
+    np.testing.assert_allclose(np.asarray(res.parent), expect, rtol=2e-5)
+
+
+def test_complete_reduction():
+    a = np.random.default_rng(5).standard_normal((128, 128)).astype(np.float32)
+    A = st.strided(jnp.asarray(a))
+    out = StridedView(jnp.zeros((1,), jnp.float32), (128, 128), (0, 0), 0, False)
+    res = st.fused_mapreduce(
+        lambda x: x, jnp.add, lambda z: jnp.zeros_like(z), (128, 128), out, [A]
+    )
+    np.testing.assert_allclose(float(res.parent[0]), a.sum(), rtol=1e-4)
+
+
+def test_broadcast_input():
+    a = np.random.default_rng(6).standard_normal((128, 256)).astype(np.float32)
+    row = np.random.default_rng(7).standard_normal((256,)).astype(np.float32)
+    A = st.strided(jnp.asarray(a))
+    R = st.broadcast_to(st.strided(jnp.asarray(row))[None, :], (128, 256))
+    out = st.strided(jnp.zeros((128, 256), jnp.float32))
+    res = st.fused_mapreduce(jnp.add, None, None, (128, 256), out, [A, R])
+    np.testing.assert_allclose(
+        np.asarray(res.parent).reshape(128, 256), a + row, rtol=1e-6
+    )
+
+
+def test_int32_exact():
+    a = np.random.default_rng(8).integers(-100, 100, (64, 64)).astype(np.int32)
+    A = st.strided(jnp.asarray(a))
+    out = st.strided(jnp.zeros((64, 64), jnp.int32))
+    res = st.fused_mapreduce(
+        lambda x, y: x * y, None, None, (64, 64), out, [A, st.transpose(A)]
+    )
+    np.testing.assert_array_equal(np.asarray(res.parent).reshape(64, 64), a * a.T)
+
+
+def test_min_reduction():
+    a = np.random.default_rng(9).standard_normal((64, 512)).astype(np.float32)
+    A = st.strided(jnp.asarray(a))
+    out = StridedView(jnp.zeros((64,), jnp.float32), (64, 512), (1, 0), 0, False)
+    res = st.fused_mapreduce(
+        lambda x: x, jnp.minimum,
+        lambda z: jnp.full_like(z, jnp.inf), (64, 512), out, [A],
+    )
+    np.testing.assert_allclose(np.asarray(res.parent), a.min(axis=1), rtol=1e-6)

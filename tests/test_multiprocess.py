@@ -1,4 +1,4 @@
-"""Multi-process distributed execution proof (VERDICT r3 missing #2).
+"""Multi-process distributed execution proof.
 
 The reference's scheduler is shared-memory only; the framework's DCN-facing
 analog is ``jax.distributed`` + the same Mesh/shard_map code paths

@@ -1,7 +1,10 @@
-"""Pallas executor tests (interpret mode on CPU — the reference-style
-"multi-config same-assertions" strategy, SURVEY.md §4): the tile kernel must
-agree exactly with the XLA path and the numpy oracle, and eligibility
-fallbacks must trigger where designed."""
+"""Tile-pair kernel and platform-gate tests.
+
+On the CPU the kernel runs in Pallas interpret mode (``conftest.py`` sets
+``Config.interpret``) through the same Triton-route ``pallas_call`` the GPU
+compiles; every case is compared with the plain fused XLA expression or
+numpy. Tests marked ``gpu`` run the compiled kernel and skip without a card.
+"""
 
 import numpy as np
 import pytest
@@ -10,168 +13,27 @@ import jax.numpy as jnp
 
 import strided_tpu as st
 from strided_tpu import config as cfg
-from strided_tpu.core import executor_pallas as ep
-from strided_tpu.core.view import StridedView
-from strided_tpu.core.regularize import materialize
+from strided_tpu.core import lazy_expr as le
+from strided_tpu.core.kernels_special import pair_axpby, pair_kernel_tile, symmetrize
 
 
-@pytest.fixture(autouse=True)
-def small_threshold():
+@pytest.fixture
+def kernels_on():
+    """Kernel path engaged at every size (the suite-wide profile may lower
+    or raise the gate)."""
     old = cfg.get_config()
-    # pallas_reductions on: these tests pin the Pallas reduce machinery's
-    # correctness (initop-once, sequential reduction grid) even though the
-    # production default routes reductions to XLA (config.py rationale).
-    # use_pallas forced on too: this file tests the kernel machinery itself,
-    # so it must engage regardless of the suite-wide engine profile
-    # (STRIDED_TPU_TEST_PROFILE=xla disables Pallas globally).
-    cfg.set_config(use_pallas=True, min_pallas_elements=1024, pair_kernel_min_elements=1024,
-                   pallas_map_min_elements=1024,
-                   pallas_reductions=True, pallas_aligned_maps=True)
+    cfg.set_config(use_pallas=True, pair_kernel_min_elements=1)
     yield
-    cfg.set_config(
-        use_pallas=old.use_pallas,
-        min_pallas_elements=old.min_pallas_elements,
-        pallas_map_min_elements=old.pallas_map_min_elements,
-        vmem_budget_bytes=old.vmem_budget_bytes,
-        pallas_reductions=old.pallas_reductions,
-        pallas_aligned_maps=old.pallas_aligned_maps,
-    )
+    cfg.set_config(**{k: getattr(old, k) for k in old.__dataclass_fields__})
 
 
-def direct(f, op, initop, dims, out, ins):
-    res = ep.try_fused_mapreduce(f, op, initop, dims, out, ins)
-    assert res is not None, "expected the Pallas path to engage"
-    return res
-
-
-def test_map_symmetrize():
-    a = np.random.default_rng(0).standard_normal((256, 256)).astype(np.float32)
-    A = st.strided(jnp.asarray(a))
-    B = st.strided(jnp.zeros((256, 256), jnp.float32))
-    res = direct(
-        lambda x, y: (x + y) / 2, None, None, (256, 256), B, [A, st.transpose(A)]
-    )
-    np.testing.assert_allclose(
-        np.asarray(res.parent).reshape(256, 256), (a + a.T) / 2, rtol=1e-6
-    )
-
-
-def test_map_into_transposed_out():
-    # out itself is a lazy transpose (write-side permutation)
-    a = np.random.default_rng(1).standard_normal((128, 256)).astype(np.float32)
-    A = st.strided(jnp.asarray(a))
-    buf = st.strided(jnp.zeros((256, 128), jnp.float32))
-    out = st.transpose(buf)  # logical (128, 256)
-    res = direct(lambda x: 2 * x, None, None, (128, 256), out, [A])
-    np.testing.assert_allclose(
-        np.asarray(res.parent).reshape(256, 128), 2 * a.T, rtol=1e-6
-    )
-
-
-def test_rank4_permute_copy():
-    t = np.random.default_rng(2).standard_normal((16, 8, 16, 8)).astype(np.float32)
-    T = st.strided(jnp.asarray(t))
-    P = st.permutedims(T, (3, 2, 1, 0))
-    out = st.strided(jnp.zeros((8, 16, 8, 16), jnp.float32))
-    res = direct(lambda x: x, None, None, (8, 16, 8, 16), out, [P])
-    np.testing.assert_array_equal(
-        np.asarray(res.parent).reshape(8, 16, 8, 16),
-        np.transpose(t, (3, 2, 1, 0)),
-    )
-
-
-def test_reduction_with_initop_beta():
-    beta = 2.5
-    a = np.random.default_rng(3).standard_normal((64, 1024)).astype(np.float32)
-    c0 = np.random.default_rng(4).standard_normal((64,)).astype(np.float32)
-    A = st.strided(jnp.asarray(a))
-    out_buf = st.strided(jnp.asarray(c0.copy()))
-    out = StridedView(out_buf.parent, (64, 1024), (1, 0), 0, False)
-    # shrink VMEM so the reduction dim splits across grid steps
-    cfg.set_config(vmem_budget_bytes=256 * 1024)
-    res = direct(lambda x: x * x, jnp.add, lambda z: beta * z, (64, 1024), out, [A])
-    expect = beta * c0 + (a * a).sum(axis=1)
-    np.testing.assert_allclose(np.asarray(res.parent), expect, rtol=2e-5)
-
-
-def test_complete_reduction():
-    a = np.random.default_rng(5).standard_normal((128, 128)).astype(np.float32)
-    A = st.strided(jnp.asarray(a))
-    out = StridedView(jnp.zeros((1,), jnp.float32), (128, 128), (0, 0), 0, False)
-    res = direct(
-        lambda x: x, jnp.add, lambda z: jnp.zeros_like(z), (128, 128), out, [A]
-    )
-    np.testing.assert_allclose(float(res.parent[0]), a.sum(), rtol=1e-4)
-
-
-def test_broadcast_input():
-    a = np.random.default_rng(6).standard_normal((128, 256)).astype(np.float32)
-    row = np.random.default_rng(7).standard_normal((256,)).astype(np.float32)
-    A = st.strided(jnp.asarray(a))
-    R = st.broadcast_to(
-        st.strided(jnp.asarray(row))[None, :], (128, 256)
-    )
-    out = st.strided(jnp.zeros((128, 256), jnp.float32))
-    res = direct(jnp.add, None, None, (128, 256), out, [A, R])
-    np.testing.assert_allclose(
-        np.asarray(res.parent).reshape(128, 256), a + row, rtol=1e-6
-    )
-
-
-def test_int32_exact():
-    a = np.random.default_rng(8).integers(-100, 100, (64, 64)).astype(np.int32)
-    A = st.strided(jnp.asarray(a))
-    out = st.strided(jnp.zeros((64, 64), jnp.int32))
-    res = direct(lambda x, y: x * y, None, None, (64, 64), out, [A, st.transpose(A)])
-    np.testing.assert_array_equal(
-        np.asarray(res.parent).reshape(64, 64), a * a.T
-    )
-
-
-def test_min_reduction():
-    a = np.random.default_rng(9).standard_normal((64, 512)).astype(np.float32)
-    A = st.strided(jnp.asarray(a))
-    out = StridedView(jnp.zeros((64,), jnp.float32), (64, 512), (1, 0), 0, False)
-    res = direct(
-        lambda x: x, jnp.minimum,
-        lambda z: jnp.full_like(z, jnp.inf), (64, 512), out, [A],
-    )
-    np.testing.assert_allclose(np.asarray(res.parent), a.min(axis=1), rtol=1e-6)
-
-
-# ---- eligibility fallbacks ----
-
-
-def test_fallback_f64():
-    a = st.strided(jnp.zeros((256, 256), jnp.float64))
-    out = st.strided(jnp.zeros((256, 256), jnp.float64))
-    assert ep.try_fused_mapreduce(lambda x: x, None, None, (256, 256), out, [a]) is None
-
-
-def test_fallback_sliced_view():
-    big = st.strided(jnp.zeros((300, 300), jnp.float32))
-    sl = st.sview(big, np.s_[0:256, 0:256])
-    out = st.strided(jnp.zeros((256, 256), jnp.float32))
-    assert ep.try_fused_mapreduce(lambda x: x, None, None, (256, 256), out, [sl]) is None
-
-
-def test_fallback_small():
-    cfg.set_config(min_pallas_elements=1 << 15)
-    a = st.strided(jnp.zeros((16, 16), jnp.float32))
-    out = st.strided(jnp.zeros((16, 16), jnp.float32))
-    assert ep.try_fused_mapreduce(lambda x: x, None, None, (16, 16), out, [a]) is None
-
-
-def test_fallback_unknown_reduce_op():
-    a = st.strided(jnp.zeros((64, 512), jnp.float32))
-    out = StridedView(jnp.zeros((64,), jnp.float32), (64, 512), (1, 0), 0, False)
-    weird = lambda p, q: jnp.arctan2(p, q)
-    assert ep.try_fused_mapreduce(lambda x: x, weird, None, (64, 512), out, [a]) is None
+def _rand(n, seed, dtype=np.float32):
+    return jnp.asarray(np.random.default_rng(seed).standard_normal((n, n)), dtype)
 
 
 def test_engine_dispatch_consistency():
-    """fused_mapreduce must give identical results whether or not the Pallas
-    path engages (the reference's 1-thread vs N-thread equivalence)."""
+    """fused_mapreduce must give identical results whether or not the kernel
+    paths are enabled (the reference's 1-thread vs N-thread equivalence)."""
     a = np.random.default_rng(10).standard_normal((128, 512)).astype(np.float32)
     A = st.strided(jnp.asarray(a))
 
@@ -181,82 +43,220 @@ def test_engine_dispatch_consistency():
             st.sbroadcast_into(B, lambda x: x * 3, st.transpose(A)).parent
         )
 
-    cfg.set_config(use_pallas=True)
-    with_pallas = run()
-    cfg.set_config(use_pallas=False)
-    without = run()
-    cfg.set_config(use_pallas=True)
-    np.testing.assert_allclose(with_pallas, without, rtol=1e-6)
+    old = cfg.get_config()
+    try:
+        cfg.set_config(use_pallas=True)
+        with_kernels = run()
+        cfg.set_config(use_pallas=False)
+        without = run()
+    finally:
+        cfg.set_config(use_pallas=old.use_pallas)
+    np.testing.assert_allclose(with_kernels, without, rtol=1e-6)
 
 
-def test_symmetrize_special_kernel():
-    from strided_tpu.core.kernels_special import symmetrize
-
-    a = jnp.asarray(
-        np.random.default_rng(20).standard_normal((1024, 1024)), jnp.float32
-    )
-    r = np.asarray(symmetrize(a, tile=512))
+def test_symmetrize_special_kernel(kernels_on):
+    a = _rand(1024, 20)
+    r = np.asarray(symmetrize(a, tile=128))
     an = np.asarray(a)
     np.testing.assert_allclose(r, (an + an.T) / 2, rtol=1e-6)
-    # odd sizes and f64 fall back to the fused expression
-    b = jnp.asarray(np.random.default_rng(21).standard_normal((100, 100)), jnp.float32)
+    # odd sizes take the kernel with masked edge tiles
+    b = _rand(100, 21)
     np.testing.assert_allclose(
         np.asarray(symmetrize(b)), (np.asarray(b) + np.asarray(b).T) / 2, rtol=1e-6
+    )
+    # f64 falls back to the fused expression
+    c = _rand(64, 22, np.float64)
+    assert pair_kernel_tile(64, 64, c.dtype) is None
+    np.testing.assert_array_equal(
+        np.asarray(symmetrize(c)), (np.asarray(c) + np.asarray(c).T) * 0.5
     )
 
 
 @pytest.mark.parametrize("n", [1000, 392])
-def test_pair_kernel_clamped_bit_exact_vs_strips(n):
-    """ADVICE r4 item 3: the edge-clamped worklist overlaps DMA writes
-    between near-clamp pairs AND the XLA strips rewrite the corner — safe
-    ONLY while every path writes bit-identical bytes. This pins the
-    identical-value invariant in CI (not just bench.py): kernel+strips vs
-    the identical-structure fused XLA expression, EXACT equality, at sizes
-    with clamped tiles (core % tile != 0) and ragged strips, for the
-    same-buffer, distinct-buffer, and single-transposed-term families."""
-    from strided_tpu.core.kernels_special import pair_axpby
+def test_pair_kernel_clamped_bit_exact_vs_strips(n, kernels_on):
+    """Ragged sizes (n not a multiple of the tile): masked edge tiles must
+    write exactly what the identical-structure fused XLA expression writes,
+    for the same-buffer, distinct-buffer and single-transposed-term
+    families."""
+    rng = np.random.default_rng(n)
+    a = jnp.asarray(rng.standard_normal((n, n)), jnp.float32)
+    c = jnp.asarray(rng.standard_normal((n, n)), jnp.float32)
+    # same-buffer symmetrize (alpha == beta: S2 = S1.T shortcut in play)
+    got = np.asarray(pair_axpby(a, scale_mode="div", scale=2.0))
+    want = np.asarray(jax.jit(lambda x: (x + x.T) / 2.0)(a))
+    np.testing.assert_array_equal(got, want)
+    # same-buffer axpby-transpose (alpha != beta): the coeff-mul + add
+    # structure gives the compiler an FMA-contraction choice, which can
+    # differ between separately compiled programs by 1 ulp — pin to a
+    # few-ulp bound
+    got = np.asarray(pair_axpby(a, alpha=3.0, beta=2.0))
+    want = np.asarray(jax.jit(lambda x: 3.0 * x + 2.0 * x.T)(a))
+    np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
+    # distinct buffers
+    got = np.asarray(pair_axpby(a, c, alpha=1.0, beta=-1.0))
+    want = np.asarray(jax.jit(lambda x, y: x + -(y.T))(a, c))
+    np.testing.assert_array_equal(got, want)
+    # single-transposed-term (alpha == 0 drops the plain term)
+    got = np.asarray(pair_axpby(a, alpha=0.0, beta=3.0))
+    want = np.asarray(jax.jit(lambda x: x.T * 3.0)(a))
+    np.testing.assert_array_equal(got, want)
 
+
+# Every spelling of the same-buffer family the expression dispatch matches
+# (lazy_expr._match_pair), with its plain-XLA twin and whether the spelling
+# leaves an FMA-contraction choice (then a few-ulp bound, else exact).
+SPELLINGS = {
+    "sym_div": (lambda v: (v + st.transpose(v)) / 2, lambda x: (x + x.T) / 2, False),
+    "sym_mul_right": (lambda v: (st.transpose(v) + v) * 0.5, lambda x: (x.T + x) * 0.5, False),
+    "sym_mul_left": (lambda v: 0.5 * (v + st.transpose(v)), lambda x: 0.5 * (x + x.T), False),
+    "antisym": (lambda v: v - st.transpose(v), lambda x: x - x.T, False),
+    "neg_first": (lambda v: -st.transpose(v) + v, lambda x: -x.T + x, False),
+    "axpby": (lambda v: 3 * v + 2 * st.transpose(v), lambda x: 3 * x + 2 * x.T, True),
+}
+
+
+@pytest.mark.parametrize("spelling", sorted(SPELLINGS))
+@pytest.mark.parametrize("n", [128, 392, 1000])
+def test_pair_kernel_expression_spellings(n, spelling, kernels_on):
+    lazy, plain, fma = SPELLINGS[spelling]
+    a = _rand(n, n + 7)
+    le.LAST_EXPR_DISPATCH = ""
+    got = np.asarray(lazy(st.strided(a)).materialize())
+    assert le.LAST_EXPR_DISPATCH == "pair-kernel", spelling
+    want = np.asarray(jax.jit(plain)(a))
+    if fma:
+        np.testing.assert_allclose(got, want, rtol=0, atol=8e-6)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 17, 63, 64, 65, 200])
+def test_pair_kernel_edge_masks(n, kernels_on):
+    """Sizes below, at and just past one 64-wide tile: masked loads and
+    stores must neither read nor write outside the matrix."""
+    a = _rand(n, 3 * n)
+    an = np.asarray(a)
+    got = np.asarray(pair_axpby(a, alpha=1.0, beta=-1.0, tile=64))
+    np.testing.assert_array_equal(got, an - an.T)
+
+
+def test_pair_kernel_bf16(kernels_on):
+    a = jnp.asarray(np.random.default_rng(5).standard_normal((160, 160)), jnp.bfloat16)
+    got = np.asarray(symmetrize(a, tile=32), np.float32)
+    want = np.asarray(jax.jit(lambda x: (x + x.T) * 0.5)(a), np.float32)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("tile", [0, 8, 48, 100])
+def test_pair_kernel_tile_must_be_power_of_two(tile, kernels_on):
+    with pytest.raises(ValueError):
+        pair_axpby(_rand(64, 1), tile=tile)
+
+
+def test_pair_kernel_gate_declines_below_threshold():
     old = cfg.get_config()
     try:
-        cfg.set_config(min_pallas_elements=1024, pair_kernel_min_elements=1024, use_pallas=True)
-        rng = np.random.default_rng(n)
-        a = jnp.asarray(rng.standard_normal((n, n)), jnp.float32)
-        c = jnp.asarray(rng.standard_normal((n, n)), jnp.float32)
-        # same-buffer symmetrize (alpha == beta: S2 = S1.T shortcut in play)
-        got = np.asarray(pair_axpby(a, scale_mode="div", scale=2.0))
-        want = np.asarray(jax.jit(lambda x: (x + x.T) / 2.0)(a))
-        np.testing.assert_array_equal(got, want)
-        # same-buffer axpby-transpose (alpha != beta): the coeff-mul + add
-        # structure gives the compiler an FMA-contraction choice, which can
-        # differ between separately compiled programs by 1 ulp on CPU — pin
-        # to a few-ulp bound (TPU bench gates the fma-free symmetrize exact)
-        got = np.asarray(pair_axpby(a, alpha=3.0, beta=2.0))
-        want = np.asarray(jax.jit(lambda x: 3.0 * x + 2.0 * x.T)(a))
-        np.testing.assert_allclose(got, want, rtol=0, atol=4e-6)
-        # distinct buffers
-        got = np.asarray(pair_axpby(a, c, alpha=1.0, beta=-1.0))
-        want = np.asarray(jax.jit(lambda x, y: x + -(y.T))(a, c))
-        np.testing.assert_array_equal(got, want)
-        # single-transposed-term (alpha == 0 drops the plain term)
-        got = np.asarray(pair_axpby(a, alpha=0.0, beta=3.0))
-        want = np.asarray(jax.jit(lambda x: x.T * 3.0)(a))
-        np.testing.assert_array_equal(got, want)
+        cfg.set_config(pair_kernel_min_elements=1 << 20)
+        assert pair_kernel_tile(512, 512, np.dtype("float32")) is None
+        assert pair_kernel_tile(1024, 1024, np.dtype("float32")) is not None
+        assert pair_kernel_tile(1024, 512, np.dtype("float32")) is None
     finally:
-        cfg.set_config(**{k: getattr(old, k) for k in old.__dataclass_fields__})
+        cfg.set_config(pair_kernel_min_elements=old.pair_kernel_min_elements)
 
 
-def test_pair_kernel_flagship_4000_bit_exact():
-    """The reference's literal 4000^2 flagship size through the clamped
-    kernel, pinned bit-exact in the pallas CI profile (bench.py gates the
-    same invariant on real hardware every round)."""
+# ---- the platform gate (config.kernel_mode) --------------------------------
+
+
+@pytest.mark.parametrize(
+    "platform, interpret, use_pallas, expected",
+    [
+        ("cpu", False, True, None),
+        ("cpu", True, True, "interpret"),
+        ("cpu", True, False, None),
+        ("gpu", False, True, "triton"),
+        ("gpu", False, False, None),
+        ("rocm", True, True, None),
+    ],
+)
+def test_kernel_mode(monkeypatch, platform, interpret, use_pallas, expected):
+    monkeypatch.setattr(jax, "default_backend", lambda: platform)
+    old = cfg.get_config()
+    try:
+        cfg.set_config(interpret=interpret, use_pallas=use_pallas)
+        assert cfg.kernel_mode() == expected
+    finally:
+        cfg.set_config(interpret=old.interpret, use_pallas=old.use_pallas)
+
+
+def test_kernel_mode_refuses_interpret_on_gpu(monkeypatch):
+    monkeypatch.setattr(jax, "default_backend", lambda: "gpu")
+    old = cfg.get_config()
+    try:
+        cfg.set_config(interpret=True)
+        with pytest.raises(RuntimeError, match="interpret"):
+            cfg.kernel_mode()
+        with pytest.raises(RuntimeError, match="interpret"):
+            symmetrize(_rand(64, 2), tile=64)
+    finally:
+        cfg.set_config(interpret=old.interpret)
+
+
+def test_no_kernel_without_interpret_on_cpu():
+    """On the CPU without ``interpret`` no kernel is offered: the pair
+    dispatch declines and the fused expression runs."""
+    old = cfg.get_config()
+    try:
+        cfg.set_config(interpret=False, pair_kernel_min_elements=1)
+        assert pair_kernel_tile(256, 256, np.dtype("float32")) is None
+        a = _rand(256, 4)
+        v = st.strided(a)
+        le.LAST_EXPR_DISPATCH = ""
+        got = np.asarray(((v + st.transpose(v)) / 2).materialize())
+        assert le.LAST_EXPR_DISPATCH == "generic"
+        np.testing.assert_array_equal(got, np.asarray(jax.jit(lambda x: (x + x.T) / 2)(a)))
+    finally:
+        cfg.set_config(interpret=old.interpret,
+                       pair_kernel_min_elements=old.pair_kernel_min_elements)
+
+
+# ---- compile-cache path rule ------------------------------------------------
+
+
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    from strided_tpu.utils import compile_cache
+
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    assert calls == []  # JAX reads the variable itself; nothing else is set
+
+
+def test_compile_cache_fixed_repo_path(monkeypatch):
     import os
 
-    if os.environ.get("STRIDED_TPU_TEST_PROFILE") != "pallas":
-        pytest.skip("4000^2 interpret-mode run only in the pallas profile")
-    from strided_tpu.core.kernels_special import pair_axpby
+    from strided_tpu.utils import compile_cache
 
+    calls = []
+    monkeypatch.setattr(jax.config, "update", lambda *a: calls.append(a))
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    path = compile_cache.enable_compile_cache()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    assert path == os.path.join(repo, ".jax_cache")
+    assert calls == [("jax_compilation_cache_dir", path)]
+    gitignore = open(os.path.join(repo, ".gitignore")).read().split()
+    assert ".jax_cache/" in gitignore
+
+
+# ---- compiled on the card ---------------------------------------------------
+
+
+@pytest.mark.gpu
+def test_pair_kernel_flagship_4000_bit_exact(gpu):
+    """The reference's literal 4000^2 flagship size through the compiled
+    kernel, bit-exact against XLA's fused expression."""
     rng = np.random.default_rng(40)
     a = jnp.asarray(rng.standard_normal((4000, 4000)), jnp.float32)
-    got = np.asarray(pair_axpby(a, scale_mode="div", scale=2.0, tile=512))
+    got = np.asarray(pair_axpby(a, scale_mode="div", scale=2.0, tile=64))
     want = np.asarray(jax.jit(lambda x: (x + x.T) / 2.0)(a))
     np.testing.assert_array_equal(got, want)

@@ -1,5 +1,4 @@
-"""No-retrace contracts for engine entry points (VERDICT r2 item 4 /
-next-round item 8) — the jit analog of the reference's ``@inferred`` type-
+"""No-retrace contracts for engine entry points — the jit analog of the reference's ``@inferred`` type-
 stability assertions (`/root/reference/test/othertests.jl:46-66`):
 
 A :class:`StridedView` is a pytree whose layout metadata (shape/strides/
@@ -132,7 +131,7 @@ def test_pair_pattern_dispatch_no_retrace():
     old = get_config()
     traces = []
     try:
-        set_config(min_pallas_elements=1024, pair_kernel_min_elements=1024, use_pallas=True)
+        set_config(pair_kernel_min_elements=1024, use_pallas=True)
 
         @jax.jit
         def f(x):
@@ -159,9 +158,6 @@ def test_stream_reduce_dispatch_no_retrace():
     old = get_config()
     traces = []
     try:
-        set_config(use_pallas=True, stream_reductions=True,
-                   min_stream_reduce_elements=1024)
-
         @jax.jit
         def f(x):
             traces.append(1)
@@ -172,7 +168,7 @@ def test_stream_reduce_dispatch_no_retrace():
         b = jnp.asarray(rng.standard_normal((512, 256)), jnp.float32)
         f(a)
         r2 = f(b)
-        assert len(traces) == 1, "stream-reduce dispatch retraced on fresh data"
+        assert len(traces) == 1, "leading-axis reduction retraced on fresh data"
         np.testing.assert_allclose(
             np.asarray(r2).reshape(256), np.asarray(b).sum(0), rtol=1e-4,
             atol=1e-4

@@ -188,7 +188,7 @@ def test_sharded_reduce_over_lazy_expr(mesh):
 
 def test_make_mesh_clamps_1d_overask_with_warning():
     """1-D over-ask clamps + warns — the reference's thread-count clamp
-    analog (`/root/reference/src/Strided.jl:21-32`; VERDICT r1 item 8)."""
+    analog (`/root/reference/src/Strided.jl:21-32`)."""
     from strided_tpu.parallel import make_mesh
     import warnings
 
@@ -204,7 +204,7 @@ def test_make_mesh_clamps_1d_overask_with_warning():
 
 def test_2d_mesh_data_model_matmul():
     """2-D ('data','model') mesh: batch sharded over data, matmul columns
-    over model — the mesh shape SURVEY §2.2 calls for (VERDICT r1 item 5)."""
+    over model — the mesh shape SURVEY §2.2 calls for."""
     from strided_tpu.parallel import make_mesh, matmul_nsplit
     from jax.sharding import NamedSharding, PartitionSpec as P
 
@@ -226,7 +226,7 @@ def test_2d_mesh_data_model_matmul():
 
 
 def test_init_distributed_noop_and_env_paths(monkeypatch):
-    """The multi-host entry point's decision logic (VERDICT r2 weak #6):
+    """The multi-host entry point's decision logic:
     single-process is a no-op; explicit args or a >1-process cluster env
     trigger `jax.distributed.initialize`; repeat calls are idempotent."""
     from strided_tpu.parallel import dist
@@ -269,7 +269,7 @@ def test_init_distributed_noop_and_env_paths(monkeypatch):
     assert calls[-1]["num_processes"] == 4
 
 
-# -- HLO collective assertions (VERDICT r3 item 9 / weak #7) ----------------
+# -- HLO collective assertions ----------------
 # The SPMD analog of the reference's race-freedom-by-construction proof
 # (/root/reference/src/mapreduce.jl:172-177): reductions lower to exactly
 # the collectives the design calls for — one all-reduce for the combine,
@@ -323,7 +323,7 @@ def test_hlo_consensus_step_one_allreduce_no_allgather(mesh):
 
 
 def test_hlo_sharded_engine_partitions_not_gathers(mesh):
-    """sharded_smap/sharded_reduce really partition (VERDICT r3 weak #7):
+    """sharded_smap/sharded_reduce really partition:
     the jitted module must contain no all-gather, and the partial-reduction
     case no collective at all (device-disjoint outputs)."""
     import strided_tpu as st
@@ -360,23 +360,16 @@ def test_hlo_sharded_engine_partitions_not_gathers(mesh):
 
 
 def test_pallas_kernels_under_shard_map(mesh):
-    """VERDICT r4 item 4 / SURVEY §2.2 row 1: the two-tier schedule — Pallas
-    kernel grid INSIDE each device's shard_map region, collectives across
-    the mesh — actually lowers and executes. Pins (a) the tile-pair kernel
-    per-device over a sharded batch, (b) the streaming reduction kernel
-    per-shard with a psum combine, and that the kernels (not fallbacks)
-    dispatched."""
+    """SURVEY §2.2 row 1: the two-tier schedule — kernel grid INSIDE each
+    device's shard_map region, collectives across the mesh — lowers and
+    executes. Pins (a) the tile-pair kernel per-device over a sharded batch
+    and (b) the per-shard leading-axis sum with a psum combine."""
     from strided_tpu.config import set_config, get_config
     from strided_tpu.parallel import sharded_batched_pair, sharded_stream_sum
-    from strided_tpu.core import kernels_special as ks
 
     old = get_config()
     try:
-        set_config(
-            use_pallas=True,
-            min_pallas_elements=1024, pair_kernel_min_elements=1024,
-            min_stream_reduce_elements=1024,
-        )
+        set_config(use_pallas=True, pair_kernel_min_elements=1024)
         rng = np.random.default_rng(31)
         x = jnp.asarray(rng.standard_normal((8, 256, 256)), jnp.float32)
         # per-device pair kernel must be eligible (the gate is consulted at
@@ -392,11 +385,8 @@ def test_pallas_kernels_under_shard_map(mesh):
         )
 
         a = jnp.asarray(rng.standard_normal((1024, 256)), jnp.float32)
-        ks.LAST_REDUCE_DISPATCH = ""
         g = jax.jit(lambda a: sharded_stream_sum(a, mesh))
         got = np.asarray(g(a))
-        # the stream kernel (not the XLA fallback) claimed the per-shard work
-        assert ks.LAST_REDUCE_DISPATCH == "stream-kernel"
         np.testing.assert_allclose(
             got, np.asarray(a).sum(0), rtol=1e-4, atol=1e-3
         )
@@ -405,7 +395,7 @@ def test_pallas_kernels_under_shard_map(mesh):
 
 
 def test_hlo_split_dim_choice_drives_partitioning(mesh):
-    """VERDICT r4 weak #5: the planner's split-dim heuristic must actually
+    """the planner's split-dim heuristic must actually
     CHANGE the partitioned HLO, not just decorate it. A plain row-major
     leaf makes ``choose_split_dim`` pick dim 0 (largest (d-1)*cost); the
     LAZY-TRANSPOSED leaf of the same buffer flips the cost profile so dim 1

@@ -3,7 +3,7 @@ reference's type-behavior assertions (`/root/reference/test/othertests.jl:38-39,
 61-64` and the style-precedence rules of `/root/reference/src/broadcast.jl:3-6`):
 all-strided operations stay in the lazy/strided world; explicit conversion
 points (`to_array`, `maybe_unstrided`, `strided_jit` returns) produce dense
-arrays. VERDICT r1 item 10."""
+arrays."""
 
 import numpy as np
 import pytest
@@ -121,8 +121,7 @@ def test_at_set_returns_view(av):
 
 
 def test_dispatch_logging(av, caplog):
-    """The engine logs which backend ran each fused call (VERDICT r1 item 8:
-    the observability hook the reference's `@warn` layer hints at)."""
+    """The engine logs which backend ran each fused call."""
     import logging
 
     a, v = av

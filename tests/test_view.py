@@ -250,7 +250,7 @@ def test_scatter_conj():
     np.testing.assert_allclose(np.asarray(materialize(rv)), vals)
 
 
-# -- indexed in-place assignment sugar (dotview analog, VERDICT r1 item 6) ---
+# -- indexed in-place assignment sugar (dotview analog) ---
 
 
 def test_at_set_scalar_and_slice():
@@ -309,7 +309,7 @@ def test_at_set_broadcasts_rhs():
     np.testing.assert_array_equal(np.asarray(got), ref)
 
 
-# -- foreign-strided adoption (VERDICT r3 item 7) ---------------------------
+# -- foreign-strided adoption ---------------------------
 # The reference constructor re-derives strided layouts from SubArray/
 # ReshapedArray parents at runtime (/root/reference/README.md:237-250);
 # strided() does the same from numpy .strides instead of densifying.

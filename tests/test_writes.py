@@ -1,7 +1,7 @@
-"""Zero-copy strided write path (VERDICT r2 item 5).
+"""Zero-copy strided write path.
 
 The reference's ``map!`` writes through ANY strided view with zero allocation
-(`/root/reference/src/mapreduce.jl:38-53`). The TPU analog: a non-overlapping
+(`/root/reference/src/mapreduce.jl:38-53`). The XLA analog: a non-overlapping
 strided write lowers to the inverse pad/reshape/slice cascade + ONE windowed
 ``dynamic_update_slice`` — no O(n) index tensors, no gather/scatter in the
 HLO. These tests pin (a) the HLO contract, (b) value correctness for a fuzzed
